@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`vss_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the root of the repository
+
+Phases, each of which fails the run (nonzero exit) on any fault:
+
+ 1. print the PyTorch version, the device and the card's name and power
+    limit;
+ 2. build the kernels and the native graph builder from the sources under
+    `vss_tpu_torch/csrc/` (one compiler process per source, all started
+    together) and print the build seconds;
+ 3. hold each kernel (K1 gather_distances, K2 native_segmin, K3
+    scan_segmin, K4 pairwise) against its plain PyTorch version on the
+    card, at the main path's shapes and at edge cases (sentinel ids,
+    invalid rows, zero vectors under cosine, NaN queries, all three
+    metrics, int8 / bf16 / f32 tapes, widths that need padding), and time
+    kernel, plain version and, where one exists, a single PyTorch library
+    call for the same work;
+ 4. serve the flagship: a SIFT-like synthetic corpus of 1,000,000 x 128
+    (the generator of bench.py, seed 0) in an int8 index with the f32
+    rerank tape, built by the native builder on all host threads, with
+    2,048 queries in batches of 512. The exact oracle (`bruteforce_topk`:
+    K3 at k=10, K4 at k=100) gives the ground truth; `scan_search` (K2)
+    and the graph `search` at ef=64 (K1) are scored by recall. Launch
+    counters are zeroed just before each path and read just after it;
+ 5. print the kernel table as one JSON line, then
+    {"ok": true, "device": {...}} as the last line.
+
+It needs a CUDA device and the rest of the repository beside it: without
+either it exits nonzero before printing any result.
+
+Tolerances of the kernel checks: kernel and plain version take the same
+inputs and differ only in the order of their f32 sums, so the largest
+absolute difference must stay under 1e-5 of the magnitude of the terms
+(l2sq: max |q|^2 + max |x|^2; ip: max |q| * max |x|; cosine: 1; the K2
+proxy: max |x|^2 + 2 max |q| max |x| for l2sq, max |q| for cosine), and
++inf (sentinels, invalid rows, NaN distances) must sit in the same
+places.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import itertools
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+REL_TOL = 1e-5
+
+DEVICE = "cuda"
+N, D, NQ, BATCH, K, EF = 1_000_000, 128, 2048, 512, 10, 64
+K_DEEP = 100  # the oracle's chunked path (K4) and recall@100
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str):
+    log(f"FAIL: {msg}")
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of `fn` over `reps` calls after one warm-up
+    call, timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(bytes_moved: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, scale: float) -> float:
+    """Max |got - want| over finite entries; fails unless the infinities
+    sit in the same places and the difference is under REL_TOL * scale."""
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    if not torch.equal(fin_g, fin_w):
+        fail(f"{name}: {int((fin_g != fin_w).sum())} entries finite in one version only")
+    err = float((got[fin_g] - want[fin_w]).abs().max()) if bool(fin_w.any()) else 0.0
+    tol = REL_TOL * scale
+    log(f"  {name}: max_abs_err {err:.6g} (tol {tol:.6g})")
+    if not err <= tol:
+        fail(f"{name}: max_abs_err {err} over tol {tol}")
+    return err
+
+
+def dist_scale(q: torch.Tensor, x: torch.Tensor, metric: str) -> float:
+    qn = float((q.float() ** 2).sum(-1).max())
+    xn = float((x.float() ** 2).sum(-1).max())
+    if metric == "l2sq":
+        return qn + xn
+    if metric == "ip":
+        return (qn * xn) ** 0.5
+    return 1.0
+
+
+def proxy_scale(q: torch.Tensor, x: torch.Tensor, metric: str) -> float:
+    qm = float((q.float() ** 2).sum(-1).max()) ** 0.5
+    xn = float((x.float() ** 2).sum(-1).max())
+    return {"l2sq": xn + 2 * qm * xn ** 0.5, "ip": qm * xn ** 0.5, "cosine": qm}[metric]
+
+
+def sift_like(rng, n: int, nq: int, d: int):
+    """bench.py's SIFT-like synthetic: clustered points in [0, 255]^d."""
+    n_centers = max(64, n // 2000)
+    centers = rng.uniform(0, 255, (n_centers, d))
+    vecs = np.clip(centers[rng.integers(0, n_centers, n)] + rng.normal(0, 25, (n, d)), 0, 255)
+    queries = np.clip(centers[rng.integers(0, n_centers, nq)] + rng.normal(0, 25, (nq, d)), 0, 255)
+    return vecs.astype(np.float32), queries.astype(np.float32)
+
+
+# ----------------------------------------------------------------------
+# phase 3: the kernels against their plain versions
+
+
+def check_k1(dev, tape, q_scaled, rng):
+    from vss_tpu_torch.ops import gather as g
+
+    log("K1 gather_distances")
+    # main-path shape: one beam step, 512 queries x E*m0 = 32 candidates
+    ids = torch.from_numpy(rng.integers(0, N, (BATCH, 32)).astype(np.int32)).to(dev)
+    ids[:, -3:] = -1  # the beam's duplicate and finished-query sentinels
+    qn = (q_scaled * q_scaled).sum(-1)
+    errs = {}
+    for metric in ("l2sq", "cosine", "ip"):
+        got = g.gather_distances(tape, ids, q_scaled, metric, qn)
+        want = g._gather_distances_plain(tape, ids, q_scaled, g.Metric.parse(metric), qn)
+        errs[metric] = compare(f"main int8 d=128 {metric}", got, want,
+                               dist_scale(q_scaled, tape, metric))
+    # edge cases: other dtypes and widths, zero rows and queries, sentinels
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 256), (torch.int8, 512),
+                     (torch.int8, 100), (torch.float32, 100)):
+        n = 5000
+        if dtype == torch.int8:
+            t = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(dev)
+        else:
+            t = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev, dtype)
+        t[7] = 0
+        qq = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32) * 10).to(dev)
+        qq[1] = 0
+        ii = torch.from_numpy(rng.integers(-1, n, (64, 40)).astype(np.int32)).to(dev)
+        ii[1, :5] = 7
+        for metric in ("l2sq", "cosine", "ip"):
+            got = g.gather_distances(t, ii, qq, metric)
+            want = g._gather_distances_plain(t, ii, qq, g.Metric.parse(metric), (qq * qq).sum(-1))
+            compare(f"{str(dtype)[6:]} d={d} {metric}", got, want, dist_scale(qq, t, metric))
+    # timing: 64 id sets (128 MB of rows) cycle so the rows come from HBM,
+    # as each beam step's new candidates do
+    id_sets = itertools.cycle(
+        [torch.randint(0, N, (BATCH, 32), dtype=torch.int32, device=dev) for _ in range(64)])
+
+    def kernel():
+        g.gather_distances(tape, next(id_sets), q_scaled, "l2sq", qn)
+
+    def plain():
+        g._gather_distances_plain(tape, next(id_sets), q_scaled, g.Metric.L2SQ, qn)
+
+    ms, plain_ms = cuda_ms(kernel, 200), cuda_ms(plain, 200)
+    n_ids = BATCH * 32
+    bytes_moved = n_ids * 4 + BATCH * D * 4 + BATCH * 4 + n_ids * D * tape.element_size() + n_ids * 4
+    b_ms, b_by = bound(bytes_moved, n_ids * D * 4, "f32")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=errs["l2sq"])
+
+
+def check_k2(dev, tape, xn, valid, q_scaled, rng):
+    from vss_tpu_torch.ops import scan as s
+
+    log("K2 native_segmin")
+    qb = q_scaled.to(torch.bfloat16)
+    errs = {}
+    for metric in ("l2sq", "cosine", "ip"):
+        got = s.native_segmin(qb, tape, xn, valid, metric)
+        want = s._native_segmin_plain(qb, tape, xn, valid, s.Metric.parse(metric))
+        errs[metric] = compare(f"main int8 {tape.shape[0]} x {D} {metric}", got, want,
+                               proxy_scale(qb, tape, metric))
+        del got, want
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128), (torch.int8, 100)):
+        n = 70_000 + 37  # ragged: not a multiple of 128
+        if dtype == torch.int8:
+            t = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(dev)
+        else:
+            t = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev, dtype)
+        t[11] = 0
+        tn = (t.float() ** 2).sum(-1)
+        v = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+        v[:64] = False  # a whole invalid sub-segment
+        qq = torch.from_numpy(rng.normal(size=(200, d)).astype(np.float32) * 5).to(dev, torch.bfloat16)
+        for metric in ("l2sq", "cosine", "ip"):
+            got = s.native_segmin(qq, t, tn, v, metric)
+            want = s._native_segmin_plain(qq, t, tn, v, s.Metric.parse(metric))
+            compare(f"{str(dtype)[6:]} d={d} n={n} {metric}", got, want, proxy_scale(qq, t, metric))
+    ms = cuda_ms(lambda: s.native_segmin(qb, tape, xn, valid, "l2sq"), 20)
+    plain_ms = cuda_ms(lambda: s._native_segmin_plain(qb, tape, xn, valid, s.Metric.L2SQ), 5)
+    nx = tape.shape[0]
+    bytes_moved = BATCH * D * 2 + nx * D + nx * 4 + nx + (nx // 32) * BATCH * 4
+    b_ms, b_by = bound(bytes_moved, 2.0 * BATCH * nx * D, "bf16")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=errs["l2sq"])
+
+
+def check_k3(dev, x, q, rng):
+    from vss_tpu_torch.ops import topk as t3
+
+    log("K3 scan_segmin")
+    valid = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    got = t3.segmin_scan(q, x, valid, "l2sq")
+    want = t3._segmin_scan_plain(q, x, valid, t3.Metric.L2SQ, True)
+    err = compare(f"main f32 {x.shape[0]} x {D} l2sq", got, want, dist_scale(q, x, "l2sq"))
+    del got, want
+    n, d = 9000 + 77, 100
+    xx = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    xx[5] = 0
+    qq = torch.from_numpy(rng.normal(size=(150, d)).astype(np.float32)).to(dev)
+    qq[2] = float("nan")
+    qq[3] = 0
+    vv = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+    vv[128:256] = False  # a whole invalid segment
+    for metric in ("l2sq", "cosine", "ip"):
+        for highest in (True, False):
+            got = t3.segmin_scan(qq, xx, vv, metric, highest)
+            want = t3._segmin_scan_plain(qq, xx, vv, t3.Metric.parse(metric), highest)
+            compare(f"f32 d={d} n={n} {metric} highest={highest}", got, want,
+                    dist_scale(qq[4:], xx, metric))
+    ms = cuda_ms(lambda: t3.segmin_scan(q, x, valid, "l2sq"), 10)
+    plain_ms = cuda_ms(lambda: t3._segmin_scan_plain(q, x, valid, t3.Metric.L2SQ, True), 5)
+    nx = x.shape[0]
+    bytes_moved = BATCH * D * 4 + nx * D * 4 + nx + (nx // 128) * BATCH * 4
+    ops = 2.0 * BATCH * nx * D + 2.0 * (BATCH + nx) * D
+    b_ms, b_by = bound(bytes_moved, ops, "f32")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err)
+
+
+def check_k4(dev, x, q, rng):
+    from vss_tpu_torch.ops import distance as dd
+    from vss_tpu_torch.ops import topk as t3
+
+    log("K4 pairwise")
+    # main-path shape: one chunk of the oracle's chunked path at k=100
+    chunk = t3._choose_chunk(x.shape[0], BATCH)
+    xc = x[:chunk]
+    got = dd.dispatch_pairwise(q, xc, "l2sq")
+    want = dd.pairwise(q, xc, "l2sq")
+    err = compare(f"main f32 {BATCH} x {chunk} x 128 l2sq", got, want, dist_scale(q, xc, "l2sq"))
+    del got, want
+    n, d = 3001, 100  # ragged rows (scalar stores) and padded width
+    xx = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    xx[9] = 0
+    qq = torch.from_numpy(rng.normal(size=(130, d)).astype(np.float32)).to(dev)
+    qq[0] = 0
+    for metric in ("l2sq", "cosine", "ip"):
+        compare(f"f32 d={d} n={n} {metric}", dd.dispatch_pairwise(qq, xx, metric),
+                dd.pairwise(qq, xx, metric), dist_scale(qq, xx, metric))
+    ms = cuda_ms(lambda: dd.dispatch_pairwise(q, xc, "l2sq"), 10)
+    plain_ms = cuda_ms(lambda: dd.pairwise(q, xc, "l2sq"), 5)
+    # the library's pairwise distance: one cuBLAS-backed call for the same
+    # product and norms (it returns the Euclidean distance, the square root
+    # of K4's l2sq)
+    library_ms = cuda_ms(lambda: torch.cdist(q, xc, compute_mode="use_mm_for_euclid_dist"), 5)
+    bytes_moved = BATCH * D * 4 + chunk * D * 4 + BATCH * chunk * 4
+    ops = 2.0 * BATCH * chunk * D + 2.0 * (BATCH + chunk) * D
+    b_ms, b_by = bound(bytes_moved, ops, "f32")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, max_abs_err=err)
+
+
+# ----------------------------------------------------------------------
+# phase 4: the main path
+
+
+def recall(got: np.ndarray, truth: np.ndarray) -> float:
+    k = truth.shape[1]
+    hits = sum(len(set(g[:k]) & set(t)) for g, t in zip(got, truth))
+    return hits / (truth.shape[0] * k)
+
+
+def timed_batches(fn, queries):
+    """Run fn over the query batches; returns (stacked outputs, ms per
+    batch from the host clock, each batch ending in a synchronize)."""
+    outs, times = [], []
+    for s in range(0, queries.shape[0], BATCH):
+        t0 = time.perf_counter()
+        out = fn(queries[s:s + BATCH])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    return [torch.cat(parts).cpu().numpy() for parts in zip(*outs)], times
+
+
+def profile_batch(label: str, fn, qb, wall_ms: float, out_dir: str) -> dict:
+    """One batch of `fn` under torch.profiler. From the exported trace:
+    the number of kernels, the device-busy time (the sum of kernel
+    durations: one stream, so they do not overlap) and the kernels that
+    take most of it. The idle share is taken against the unprofiled
+    ms/batch `wall_ms`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(qb)
+        torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace_" + re.sub(r"\W+", "_", label).strip("_") + ".json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    busy_ms = sum(e["dur"] for e in kernels) / 1e3
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e["name"][:48]] += e["dur"] / 1e3
+    top = [[n, round(ms, 4)] for n, ms in by_name.most_common(5)]
+    if not kernels:
+        log(f"profile {label}: the trace holds no kernels; device busy time not measured")
+        return {"kernels": 0}
+    log(f"profile {label}: {len(kernels)} kernels, device busy {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms/batch, idle share {1 - busy_ms / wall_ms:.3f}; top {top}")
+    return {"kernels": len(kernels), "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "top_ms": top}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-dir", default=None,
+                    help="where the profiler traces go (default: vss_tpu_torch/_build/traces)")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vss_tpu_torch import HNSWConfig, HNSWIndex, csrc
+    from vss_tpu_torch.ops import bruteforce_topk
+
+    dev = torch.device(DEVICE)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
+        f"count {torch.cuda.device_count()}")
+    log(f"nvidia-smi: {smi}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on; the exact paths need full f32 products")
+
+    # ---- phase 2: build
+    log(f"build: {csrc.build():.2f} s for {sorted(csrc.SOURCES)}")
+    for lib in sorted(csrc.SOURCES):
+        path = os.path.join(csrc.BUILD_DIR, f"{lib}.log")
+        if os.path.exists(path):
+            for line in open(path).read().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {lib}: {line.strip()}")
+
+    # ---- data (set-up): bench.py's SIFT-like generator
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    vecs, queries = sift_like(rng, N, NQ, D)
+    log(f"data: {N} x {D} corpus, {NQ} queries in {time.perf_counter() - t0:.1f} s")
+
+    # ---- build the index (host threads) before the kernel checks, which
+    # use its tapes
+    cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
+    t0 = time.perf_counter()
+    idx = HNSWIndex.build(vecs, cfg, method="native", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"native build: {build_s:.1f} s ({N / build_s:.0f} rows/s), M={cfg.m} "
+        f"ef_construction={cfg.ef_construction}, capacity {idx.capacity}")
+    if idx.count != N:
+        fail(f"index holds {idx.count} rows, expected {N}")
+
+    x = torch.from_numpy(vecs).to(dev)
+    q_all = torch.from_numpy(queries).to(dev)
+    q = q_all[:BATCH].contiguous()
+    q_scaled = (q / idx.vector_scale).contiguous()
+
+    # ---- phase 3: kernels against their plain versions
+    krng = np.random.default_rng(args.seed + 1)
+    results = {
+        "gather_distances": check_k1(dev, idx.graph.vectors, q_scaled, krng),
+        "native_segmin": check_k2(dev, idx.graph.vectors, idx.norms(), idx.graph.valid,
+                                  q_scaled, krng),
+        "scan_segmin": check_k3(dev, x, q, krng),
+        "pairwise": check_k4(dev, x, q, krng),
+    }
+    torch.cuda.synchronize()
+
+    # ---- phase 4: the main path, each sub-path with the counts zeroed
+    # just before it and read just after
+    # warm-up: one batch of each serving path (allocator, first launches)
+    idx.scan_search(q, K)
+    idx.search(q, K, ef=EF)
+    torch.cuda.synchronize()
+    launches = {k: 0 for k in csrc.KERNELS}
+    per_path = {}
+
+    def run_path(label, fn):
+        csrc.reset_launch_counts()
+        out, times = timed_batches(fn, q_all)
+        counts = {k: v.launches for k, v in csrc.KERNELS.items()}
+        per_path[label] = counts
+        for k, v in counts.items():
+            launches[k] += v
+        ms = sum(times) / len(times)
+        log(f"{label}: {ms:.3f} ms/batch of {BATCH} (batches {[round(t, 3) for t in times]}), "
+            f"{NQ / (sum(times) / 1e3):.1f} qps, launches {counts}")
+        return out, ms
+
+    (gt_d, gt_i), gt_ms = run_path(
+        "oracle k=10", lambda qb: bruteforce_topk(qb, x, K, "l2sq", device=dev))
+    (gt100_d, gt100_i), gt100_ms = run_path(
+        "oracle k=100", lambda qb: bruteforce_topk(qb, x, K_DEEP, "l2sq", device=dev))
+    (sc_d, sc_i), scan_ms = run_path("scan_search k=10", lambda qb: idx.scan_search(qb, K))
+    (sc100_d, sc100_i), scan100_ms = run_path(
+        "scan_search k=100", lambda qb: idx.scan_search(qb, K_DEEP))
+    (gr_d, gr_i), graph_ms = run_path(
+        f"search k=10 ef={EF}", lambda qb: idx.search(qb, K, ef=EF))
+
+    # ---- checks of what came out
+    for label, (dd, ii, k) in {
+        "oracle k=10": (gt_d, gt_i, K), "oracle k=100": (gt100_d, gt100_i, K_DEEP),
+        "scan k=10": (sc_d, sc_i, K), "scan k=100": (sc100_d, sc100_i, K_DEEP),
+        "graph k=10": (gr_d, gr_i, K),
+    }.items():
+        if dd.shape != (NQ, k) or ii.shape != (NQ, k):
+            fail(f"{label}: shapes {dd.shape} {ii.shape}")
+        if not np.isfinite(dd).all() or (ii < 0).any() or (ii >= N).any():
+            fail(f"{label}: non-finite distances or ids out of range")
+        if (np.diff(dd, axis=1) < 0).any():
+            fail(f"{label}: distances not ascending")
+    # two independent exact paths (K3 winnow, K4 chunks) agree
+    agree = recall(gt100_i[:, :K], gt_i)
+    log(f"oracle k=10 (K3) vs first 10 of k=100 (K4): id agreement {agree:.6f}")
+    if agree < 0.999:
+        fail("the two oracle paths disagree")
+    # reference distances on a small input: 64 queries in float64 on the host
+    ref = ((vecs[gt_i[:64, 0]].astype(np.float64) - queries[:64].astype(np.float64)) ** 2).sum(1)
+    rel = float(np.abs(gt_d[:64, 0] - ref).max() / ref.max())
+    log(f"oracle top-1 distance vs float64 host reference: max rel err {rel:.3g}")
+    if rel > 1e-4:
+        fail("oracle distances disagree with the float64 reference")
+    same = sc_i[:, 0] == gt_i[:, 0]
+    scan_rel = float(np.abs(sc_d[same, 0] - gt_d[same, 0]).max() / gt_d[same, 0].max())
+    log(f"scan top-1 distance vs oracle where ids agree: max rel err {scan_rel:.3g}")
+    if scan_rel > 1e-4:
+        fail("scan distances disagree with the oracle")
+
+    r_scan, r_scan100 = recall(sc_i, gt_i), recall(sc100_i, gt100_i)
+    r_graph = recall(gr_i, gt_i)
+    log(f"recall@10 scan_search {r_scan:.4f}; recall@100 scan_search {r_scan100:.4f}; "
+        f"recall@10 search ef={EF} {r_graph:.4f}")
+    # where the time goes: one batch of each serving path under the profiler
+    out_dir = args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces")
+    profiles = {
+        "scan": profile_batch("scan_search k=10", lambda qb: idx.scan_search(qb, K), q,
+                              scan_ms, out_dir),
+        "graph": profile_batch(f"search k=10 ef={EF}", lambda qb: idx.search(qb, K, ef=EF), q,
+                               graph_ms, out_dir),
+    }
+    summary = {
+        "card": smi, "n": N, "d": D, "queries": NQ, "batch": BATCH,
+        "build_s": round(build_s, 3),
+        "scan": {"ms_per_batch": scan_ms, "qps": BATCH / scan_ms * 1e3, "recall_at_10": r_scan},
+        "scan_k100": {"ms_per_batch": scan100_ms, "qps": BATCH / scan100_ms * 1e3,
+                      "recall_at_100": r_scan100},
+        "graph": {"ef": EF, "ms_per_batch": graph_ms, "qps": BATCH / graph_ms * 1e3,
+                  "recall_at_10": r_graph},
+        "oracle_ms_per_batch": {"k10": gt_ms, "k100": gt100_ms},
+        "launches_per_path": per_path,
+        "profiles": profiles,
+    }
+    log("main path: " + json.dumps(summary))
+    if r_scan < 0.99:
+        fail(f"scan recall@10 {r_scan} < 0.99")
+    if r_graph < 0.85:
+        fail(f"graph recall@10 {r_graph} < 0.85")
+    needed = {"scan_segmin": "oracle k=10", "pairwise": "oracle k=100",
+              "native_segmin": "scan_search k=10", "gather_distances": f"search k=10 ef={EF}"}
+    for kname, label in needed.items():
+        if per_path[label][kname] <= 0:
+            fail(f"kernel {kname} was not launched on the path '{label}'")
+
+    # ---- phase 5: the kernel table and the last line
+    meta = {
+        "gather_distances": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:142"),
+        "native_segmin": ("vss_tpu_torch/csrc/scan.cu", "vss_tpu/ops/scan.py:78"),
+        "scan_segmin": ("vss_tpu_torch/csrc/topk.cu", "vss_tpu/ops/topk.py:134"),
+        "pairwise": ("vss_tpu_torch/csrc/distance.cu", "vss_tpu/ops/distance.py:113"),
+    }
+    table = [
+        {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
+         "launches": launches[kname], **results[kname]}
+        for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise")
+    ]
+    log(smi)
+    log(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

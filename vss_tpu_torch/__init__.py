@@ -1,0 +1,31 @@
+"""vss_tpu_torch: the PyTorch/CUDA port of vss_tpu for an NVIDIA H100.
+
+A second package beside `vss_tpu` (the JAX reference, which it never
+imports); this file reproduces `vss_tpu/__init__.py` for the ported
+serving path. Plain tensor code is PyTorch; every TPU kernel on the ported
+path is a hand-written CUDA kernel for sm_90a under `csrc/`, built with
+nvcc at first use, with a plain PyTorch version beside it for CPU
+tensors. Entry points run on the CUDA device unless `device="cpu"` is
+passed.
+
+    import numpy as np
+    from vss_tpu_torch import HNSWConfig, HNSWIndex
+
+    idx = HNSWIndex.build(vectors, HNSWConfig(dims=128, storage_dtype="int8"),
+                          method="native")
+    dists, rowids = idx.search(queries, k=10, ef=64)
+    dists, rowids = idx.scan_search(queries, k=10)
+"""
+import torch
+
+# The exact paths need true f32 products: TF32 keeps about three decimal
+# digits, and the l2sq form |q|^2+|x|^2-2qx cancels catastrophically.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from vss_tpu_torch.index import HNSWConfig, HNSWIndex  # noqa: E402
+from vss_tpu_torch.ops import Metric  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = ["HNSWConfig", "HNSWIndex", "Metric"]
