@@ -11,12 +11,12 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     `vss_tpu_torch/csrc/` (one compiler process per source, all started
     together) and print the build seconds;
  3. hold each kernel (K1 gather_distances, K2 native_segmin, K3
-    scan_segmin, K4 pairwise) against its plain PyTorch version on the
-    card, at the main path's shapes and at edge cases (sentinel ids,
-    invalid rows, zero vectors under cosine, NaN queries, all three
-    metrics, int8 / bf16 / f32 tapes, widths that need padding), and time
-    kernel, plain version and, where one exists, a single PyTorch library
-    call for the same work;
+    scan_segmin, K4 pairwise, K5 gather_rows) against its plain PyTorch
+    version on the card, at the main path's shapes and at edge cases
+    (sentinel ids, invalid rows, zero vectors under cosine, NaN queries,
+    all three metrics, int8 / bf16 / f32 tapes, widths that need padding
+    or narrow accesses), and time kernel, plain version and, where one
+    exists, a single PyTorch library call for the same work;
  4. serve the flagship: a SIFT-like synthetic corpus of 1,000,000 x 128
     (the generator of bench.py, seed 0) in an int8 index with the f32
     rerank tape, built by the native builder on all host threads, with
@@ -24,7 +24,16 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     K3 at k=10, K4 at k=100) gives the ground truth; `scan_search` (K2)
     and the graph `search` at ef=64 (K1) are scored by recall. Launch
     counters are zeroed just before each path and read just after it;
- 5. print the kernel table as one JSON line, then
+ 5. write to the same index, with new rows from the same generator and
+    cluster centres: insert 32,768 rows in waves of 1,024 (the capacity
+    doubles), tombstone 20% of all rows and search through them, insert
+    4,096 rows into recycled slots, compact, and search and scan again;
+    then build a second index of 32,768 rows with the wave builder. Each
+    step has its launch counters zeroed before and read after, its
+    seconds printed and its result checked (counts, slots, recall against
+    the oracle over the live rows, no deleted row returned); one
+    1,024-row insert runs under the profiler for its idle share;
+ 6. print the kernel table as one JSON line, then
     {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA device and the rest of the repository beside it: without
@@ -36,7 +45,8 @@ absolute difference must stay under 1e-5 of the magnitude of the terms
 (l2sq: max |q|^2 + max |x|^2; ip: max |q| * max |x|; cosine: 1; the K2
 proxy: max |x|^2 + 2 max |q| max |x| for l2sq, max |q| for cosine), and
 +inf (sentinels, invalid rows, NaN distances) must sit in the same
-places.
+places. K5 copies bytes: kernel and plain version must be equal bit for
+bit.
 """
 from __future__ import annotations
 
@@ -61,6 +71,9 @@ REL_TOL = 1e-5
 DEVICE = "cuda"
 N, D, NQ, BATCH, K, EF = 1_000_000, 128, 2048, 512, 10, 64
 K_DEEP = 100  # the oracle's chunked path (K4) and recall@100
+# the write path: rows inserted in waves of WAVE, rows inserted into
+# recycled slots, the share of rows tombstoned, rows of the wave build
+N_INSERT, N_RECYCLE, WAVE, DELETE_SHARE, N_WAVE_BUILD = 32_768, 4_096, 1024, 0.2, 32_768
 
 
 def log(*a):
@@ -127,13 +140,16 @@ def proxy_scale(q: torch.Tensor, x: torch.Tensor, metric: str) -> float:
     return {"l2sq": xn + 2 * qm * xn ** 0.5, "ip": qm * xn ** 0.5, "cosine": qm}[metric]
 
 
-def sift_like(rng, n: int, nq: int, d: int):
-    """bench.py's SIFT-like synthetic: clustered points in [0, 255]^d."""
-    n_centers = max(64, n // 2000)
-    centers = rng.uniform(0, 255, (n_centers, d))
+def sift_like(rng, n: int, nq: int, d: int, centers=None):
+    """bench.py's SIFT-like synthetic: clustered points in [0, 255]^d.
+    Returns (vectors, queries, cluster centres); given `centers`, draws
+    further rows around them."""
+    if centers is None:
+        centers = rng.uniform(0, 255, (max(64, n // 2000), d))
+    n_centers = centers.shape[0]
     vecs = np.clip(centers[rng.integers(0, n_centers, n)] + rng.normal(0, 25, (n, d)), 0, 255)
     queries = np.clip(centers[rng.integers(0, n_centers, nq)] + rng.normal(0, 25, (nq, d)), 0, 255)
-    return vecs.astype(np.float32), queries.astype(np.float32)
+    return vecs.astype(np.float32), queries.astype(np.float32), centers
 
 
 # ----------------------------------------------------------------------
@@ -292,6 +308,87 @@ def check_k4(dev, x, q, rng):
                 library_ms=library_ms, max_abs_err=err)
 
 
+def check_k5(dev, tape, rerank, adj0, rng):
+    """K5 against its plain version, bit for bit. The main shapes are the
+    write path's: compaction permutes the grown tapes (twice the index's
+    capacity: ascending kept slots, then a tail of zeros), one wave's
+    `select_neighbors` gathers W x (ef_construction + M) candidate rows,
+    and a beam step gathers W x 4 adjacency rows."""
+    from vss_tpu_torch.ops import gather as g
+
+    log("K5 gather_rows")
+
+    def same(name, table, ids, skip_neg=False):
+        got = g.gather_rows(table, ids, skip_neg)
+        want = g._gather_rows_plain(table, ids, skip_neg)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"K5 {name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+        diff = int((got.view(torch.uint8) != want.view(torch.uint8)).sum())
+        log(f"  {name}: {diff} bytes differ")
+        if diff:
+            fail(f"K5 {name}: kernel and plain version differ in {diff} bytes")
+
+    def timed(name, table, id_sets, reps):
+        """(ms, plain_ms, library_ms, bound_ms, bound_by) over cycling id sets."""
+        sets = itertools.cycle(id_sets)
+        longs = itertools.cycle([i.clamp(min=0).reshape(-1).long() for i in id_sets])
+        ms = cuda_ms(lambda: g.gather_rows(table, next(sets)), reps)
+        plain_ms = cuda_ms(lambda: g._gather_rows_plain(table, next(sets)), reps)
+        library_ms = cuda_ms(lambda: torch.index_select(table, 0, next(longs)), reps)
+        ids = id_sets[0]
+        row_bytes = table.shape[1] * table.element_size()
+        # each distinct row read once, each output row and each id once
+        bytes_moved = (int(torch.unique(ids.clamp(min=0)).numel()) + ids.numel()) * row_bytes \
+            + ids.numel() * 4
+        b_ms, b_by = bound(bytes_moved, 0, "f32")
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return dict(shape=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=b_ms, bound_by=b_by)
+
+    cap = tape.shape[0]
+    grown = 2 * cap
+    # the grown tapes, as _ensure_capacity leaves them
+    tape2 = torch.cat([tape, torch.zeros_like(tape)])
+    rerank2 = torch.cat([rerank, torch.zeros_like(rerank)])
+    kept = np.sort(rng.choice(cap + N_INSERT, int((cap + N_INSERT) * (1 - DELETE_SHARE)),
+                              replace=False))
+    perm = torch.from_numpy(
+        np.concatenate([kept, np.zeros(grown - kept.size, np.int64)]).astype(np.int32)).to(dev)
+    same(f"compaction int8 {grown} x {tape.shape[1]}", tape2, perm)
+    same(f"compaction f32 {grown} x {rerank.shape[1]}", rerank2, perm)
+    cand = [torch.randint(0, cap, (WAVE, 144), dtype=torch.int32, device=dev) for _ in range(16)]
+    cand[0][:, -5:] = -1
+    same(f"select_neighbors ids {WAVE} x 144 int8", tape, cand[0])
+    beam = [torch.randint(-1, cap, (WAVE, 4), dtype=torch.int32, device=dev) for _ in range(64)]
+    same(f"adjacency ids {WAVE} x 4 over adj0", adj0, beam[0])
+    # edges
+    same("negative ids clamped", tape, torch.tensor([-1, 5, -7, 0], device=dev))
+    same("skip_neg zeros", rerank, torch.tensor([[3, -1], [-2, 9]], device=dev), skip_neg=True)
+    same("bf16 d=128", tape[:5000].to(torch.bfloat16), cand[0] % 5000)
+    t100 = torch.from_numpy(rng.integers(-127, 128, (5000, 100)).astype(np.int8)).to(dev)
+    same("int8 d=100 (4-byte accesses)", t100, cand[0] % 5000)
+    same("int8 d=100 from an odd storage offset (1-byte accesses)",
+         t100.reshape(-1)[1:1 + 4000 * 100].reshape(4000, 100), cand[0] % 4000)
+    t99 = torch.from_numpy(rng.integers(-127, 128, (3000, 99)).astype(np.int8)).to(dev)
+    same("int8 d=99 (1-byte accesses)", t99, cand[0] % 3000, skip_neg=True)
+    same("a single row", rerank, torch.tensor([cap - 1], device=dev))
+    same("an empty id list", tape, torch.zeros((0,), dtype=torch.int32, device=dev))
+    same("descending ids", tape, torch.arange(9999, -1, -1, dtype=torch.int32, device=dev))
+    same("repeated ids", tape, torch.full((4096,), 77, dtype=torch.int32, device=dev))
+    shapes = [
+        timed(f"compaction int8 {grown} x {tape.shape[1]}", tape2, [perm], 20),
+        timed(f"compaction f32 {grown} x {rerank.shape[1]}", rerank2, [perm], 10),
+        timed(f"select_neighbors ids {WAVE} x 144 int8", tape, cand, 100),
+        timed(f"adjacency ids {WAVE} x 4 over adj0", adj0, beam, 200),
+    ]
+    main = shapes[0]
+    return dict(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"], max_abs_err=0.0,
+                shapes=shapes)
+
+
 # ----------------------------------------------------------------------
 # phase 4: the main path
 
@@ -346,6 +443,153 @@ def profile_batch(label: str, fn, qb, wall_ms: float, out_dir: str) -> dict:
             "top_ms": top}
 
 
+def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) -> dict:
+    """Phase 5: insert, delete, insert into recycled slots, compact and a
+    wave build, each step timed on the host clock (ending in a
+    synchronize) with its own launch counts, which are also added to
+    `launches`. Fails the run on any check."""
+    from vss_tpu_torch import HNSWIndex, csrc
+    from vss_tpu_torch.ops import bruteforce_topk
+
+    n0 = idx.count
+    cap0 = idx.capacity
+    wrng = np.random.default_rng(seed + 2)
+    new_vecs, _, _ = sift_like(wrng, N_INSERT + N_RECYCLE, 0, D, centers)
+    x_all = torch.cat([x, torch.from_numpy(new_vecs).to(dev)])
+    steps = {}
+
+    def step(label, fn):
+        csrc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in csrc.KERNELS.items()}
+        for k, v in counts.items():
+            launches[k] += v
+        steps[label] = {"seconds": seconds, "launches": counts}
+        log(f"{label}: {seconds:.3f} s, launches {counts}")
+        return out, seconds
+
+    def search_all(fn):
+        """fn over the query batches -> (dists, rowids) as numpy."""
+        outs = [fn(q_all[s:s + BATCH]) for s in range(0, q_all.shape[0], BATCH)]
+        return [torch.cat(parts).cpu().numpy() for parts in zip(*outs)]
+
+    def live_truth(live_mask):
+        """The exact top-K over the live rows; rowid == row of x_all."""
+        valid = torch.from_numpy(live_mask).to(dev)
+        return search_all(lambda qb: bruteforce_topk(
+            qb, x_all[:live_mask.size], K, "l2sq", valid_mask=valid, device=dev))[1]
+
+    def check_rows(label, rows, live_mask):
+        if rows.shape != (q_all.shape[0], K) or (rows < 0).any() or (rows >= live_mask.size).any():
+            fail(f"{label}: rowids of shape {rows.shape} or out of range")
+        if not live_mask[rows].all():
+            fail(f"{label}: {int((~live_mask[rows]).sum())} returned rowids are deleted rows")
+
+    # 1. insert N_INSERT rows in waves of WAVE: the capacity doubles
+    _, ins_s = step(f"insert {N_INSERT} rows", lambda: idx.insert(
+        new_vecs[:N_INSERT], np.arange(n0, n0 + N_INSERT)))
+    n1 = n0 + N_INSERT
+    if idx.count != n1 or idx.next_slot != n1 or idx.capacity != 2 * cap0:
+        fail(f"after insert: count {idx.count}, next_slot {idx.next_slot}, capacity "
+             f"{idx.capacity}; expected {n1}, {n1}, {2 * cap0}")
+    probe = wrng.choice(N_INSERT, min(NQ, N_INSERT), replace=False)
+    _, found = idx.search(new_vecs[probe], 1, ef=EF)
+    self_hit = float((found[:, 0].cpu().numpy() == n0 + probe).mean())
+    log(f"insert: {N_INSERT / ins_s:.1f} rows/s, {ins_s / (N_INSERT / WAVE):.3f} s per wave of "
+        f"{WAVE}; capacity {cap0} -> {idx.capacity}; search(k=1, ef={EF}) of {probe.size} "
+        f"inserted vectors returns the row itself for {self_hit:.4f}")
+    if self_hit < 0.95:
+        fail(f"only {self_hit} of the inserted rows find themselves")
+    for kname in ("gather_rows", "gather_distances"):
+        if steps[f"insert {N_INSERT} rows"]["launches"][kname] <= 0:
+            fail(f"kernel {kname} was not launched by the insert step")
+
+    # 2. tombstone a share of all rows; search through the tombstones
+    gone = wrng.choice(n1, int(n1 * DELETE_SHARE), replace=False)
+    n_gone, _ = step(f"delete {gone.size} rows", lambda: idx.delete(gone))
+    live = np.ones(n1, bool)
+    live[gone] = False
+    if n_gone != gone.size or idx.count != n1 - gone.size or idx.deleted_count != gone.size:
+        fail(f"after delete: deleted {n_gone}, count {idx.count}, tombstones {idx.deleted_count}")
+    (_, del_rows), _ = step("search with tombstones", lambda: search_all(
+        lambda qb: idx.search(qb, K, ef=EF)))
+    check_rows("search with tombstones", del_rows, live)
+    r_deleted = recall(del_rows, live_truth(live))
+    log(f"recall@10 search ef={EF} with {gone.size} tombstones {r_deleted:.4f}")
+    if r_deleted < 0.85:
+        fail(f"recall@10 with tombstones {r_deleted} < 0.85")
+
+    # 3. insert into recycled slots
+    _, rec_s = step(f"insert {N_RECYCLE} rows into recycled slots", lambda: idx.insert(
+        new_vecs[N_INSERT:], np.arange(n1, n1 + N_RECYCLE)))
+    if idx.next_slot != n1 or idx.deleted_count != gone.size - N_RECYCLE:
+        fail(f"after the recycling insert: next_slot {idx.next_slot} (expected {n1}), "
+             f"tombstones {idx.deleted_count} (expected {gone.size - N_RECYCLE})")
+    live = np.concatenate([live, np.ones(N_RECYCLE, bool)])
+
+    # 4. compact
+    _, compact_s = step("compact", idx.compact)
+    if idx.deleted_count != 0 or idx.next_slot != idx.count or idx.free_slots != [] \
+            or idx.count != int(live.sum()):
+        fail(f"after compact: tombstones {idx.deleted_count}, next_slot {idx.next_slot}, "
+             f"count {idx.count} (expected {int(live.sum())}), {len(idx.free_slots)} free slots")
+    if steps["compact"]["launches"]["gather_rows"] <= 0:
+        fail("kernel gather_rows was not launched by the compact step")
+    truth = live_truth(live)
+    (_, c_rows), _ = step("search after compact", lambda: search_all(
+        lambda qb: idx.search(qb, K, ef=EF)))
+    (_, s_rows), _ = step("scan_search after compact", lambda: search_all(
+        lambda qb: idx.scan_search(qb, K)))
+    check_rows("search after compact", c_rows, live)
+    check_rows("scan_search after compact", s_rows, live)
+    r_compact, r_compact_scan = recall(c_rows, truth), recall(s_rows, truth)
+    log(f"after compact: recall@10 search ef={EF} {r_compact:.4f}, scan_search "
+        f"{r_compact_scan:.4f}, {idx.count} rows")
+    if r_compact < 0.85:
+        fail(f"recall@10 after compact {r_compact} < 0.85")
+    if r_compact_scan < 0.99:
+        fail(f"scan recall@10 after compact {r_compact_scan} < 0.99")
+
+    # where the time of a wave goes: one WAVE-row insert into a clone (the
+    # clone shares the tensors and insert writes to its own copy)
+    wave_rows = vecs[:WAVE] + 1.0
+    clone = idx.clone()
+    prof = profile_batch(f"insert {WAVE} rows", lambda rows: clone.insert(
+        rows, np.arange(2 * n1, 2 * n1 + WAVE)), wave_rows, ins_s / (N_INSERT / WAVE) * 1e3,
+        out_dir)
+    del clone
+
+    # 5. a wave build
+    nb = min(N_WAVE_BUILD, vecs.shape[0])
+    built, wave_s = step(f"wave build of {nb} rows", lambda: HNSWIndex.build(
+        vecs[:nb], idx.config, method="wave", wave_size=WAVE, device=dev))
+    if built.count != nb:
+        fail(f"the wave build holds {built.count} rows, expected {nb}")
+    _, w_rows = search_all(lambda qb: built.search(qb, K, ef=EF))
+    w_truth = search_all(lambda qb: bruteforce_topk(qb, x[:nb], K, "l2sq", device=dev))[1]
+    r_wave = recall(w_rows, w_truth)
+    log(f"wave build: {nb / wave_s:.1f} rows/s, recall@10 search ef={EF} {r_wave:.4f}")
+    if r_wave < 0.9:
+        fail(f"recall@10 of the wave-built index {r_wave} < 0.9")
+    if steps[f"wave build of {nb} rows"]["launches"]["gather_distances"] <= 0:
+        fail("kernel gather_distances was not launched by the wave build")
+    return {
+        "card": smi, "steps": steps,
+        "insert": {"rows": N_INSERT, "wave": WAVE, "rows_per_s": N_INSERT / ins_s,
+                   "self_hit_at_1": self_hit, "capacity": [cap0, 2 * cap0]},
+        "delete": {"rows": int(gone.size), "recall_at_10_with_tombstones": r_deleted},
+        "recycle": {"rows": N_RECYCLE, "rows_per_s": N_RECYCLE / rec_s},
+        "compact": {"seconds": compact_s, "rows": int(live.sum()),
+                    "recall_at_10": r_compact, "scan_recall_at_10": r_compact_scan},
+        "wave_build": {"rows": nb, "seconds": wave_s, "recall_at_10": r_wave},
+        "profile_insert_wave": prof,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -383,7 +627,7 @@ def main() -> int:
     # ---- data (set-up): bench.py's SIFT-like generator
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    vecs, queries = sift_like(rng, N, NQ, D)
+    vecs, queries, centers = sift_like(rng, N, NQ, D)
     log(f"data: {N} x {D} corpus, {NQ} queries in {time.perf_counter() - t0:.1f} s")
 
     # ---- build the index (host threads) before the kernel checks, which
@@ -411,6 +655,7 @@ def main() -> int:
                                   q_scaled, krng),
         "scan_segmin": check_k3(dev, x, q, krng),
         "pairwise": check_k4(dev, x, q, krng),
+        "gather_rows": check_k5(dev, idx.graph.vectors, idx.rerank_tape, idx.graph.adj0, krng),
     }
     torch.cuda.synchronize()
 
@@ -509,17 +754,23 @@ def main() -> int:
         if per_path[label][kname] <= 0:
             fail(f"kernel {kname} was not launched on the path '{label}'")
 
-    # ---- phase 5: the kernel table and the last line
+    # ---- phase 5: the write path, on the same index
+    write = write_path(args.seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir)
+    log("write path: " + json.dumps(write))
+
+    # ---- phase 6: the kernel table and the last line
     meta = {
         "gather_distances": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:142"),
         "native_segmin": ("vss_tpu_torch/csrc/scan.cu", "vss_tpu/ops/scan.py:78"),
         "scan_segmin": ("vss_tpu_torch/csrc/topk.cu", "vss_tpu/ops/topk.py:134"),
         "pairwise": ("vss_tpu_torch/csrc/distance.cu", "vss_tpu/ops/distance.py:113"),
+        "gather_rows": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:39"),
     }
     table = [
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
          "launches": launches[kname], **results[kname]}
-        for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise")
+        for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
+                      "gather_rows")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

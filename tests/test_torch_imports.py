@@ -40,6 +40,8 @@ def test_port_has_modules():
     files = _port_files()
     assert "chip_smoke.py" in files
     assert len(files) > 10
+    for module in ("build", "select", "host_build", "join", "dense", "search"):
+        assert os.path.join("vss_tpu_torch", "index", f"{module}.py") in files
 
 
 @pytest.mark.parametrize("path", _port_files())

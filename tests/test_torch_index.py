@@ -128,8 +128,39 @@ def test_entry_points_need_a_gpu_or_device_cpu():
 
 def test_build_methods_not_ported_raise():
     vecs = np.zeros((16, 8), np.float32)
-    for method in ("exact", "wave"):
-        with pytest.raises(NotImplementedError, match="queue A"):
-            HNSWIndex.build(vecs, TConfig(dims=8), method=method, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A"):
+        HNSWIndex.build(vecs, TConfig(dims=8), method="exact", device="cpu")
     with pytest.raises(NotImplementedError):
         HNSWIndex.build(np.zeros((9000, 8), np.float32), TConfig(dims=8), device="cpu")
+    with pytest.raises(ValueError, match="unknown build method"):
+        HNSWIndex.build(vecs, TConfig(dims=8), method="bulk", device="cpu")
+    # the wave builder is ported
+    assert HNSWIndex.build(vecs, TConfig(dims=8), method="wave", device="cpu").count == 16
+
+
+def test_convert_carries_write_path_state(pair):
+    jidx, _, _ = pair
+    jidx = jidx.clone()
+    jidx.insert(np.full((2, D), 200.0, np.float32), [N, N + 1])  # beyond the int8 scale
+    arrays = {f: np.asarray(getattr(jidx.graph, f)) for f in GRAPH_FIELDS}
+    cfg = jidx.config
+    tidx = index_from_state(
+        TConfig(dims=cfg.dims, metric=cfg.metric, storage_dtype=cfg.storage_dtype),
+        arrays, vector_scale=jidx.vector_scale, rerank_tape=np.asarray(jidx.rerank_tape),
+        rowid_to_slot=jidx.rowid_to_slot, next_slot=jidx.next_slot,
+        upper_used=jidx.upper_used, scale_max_abs=jidx.scale_max_abs,
+        scale_overflow=jidx.scale_overflow, insert_seed=jidx._insert_seed,
+        dirty=jidx.dirty, device="cpu",
+    )
+    assert (tidx.scale_max_abs, tidx.scale_overflow, tidx._insert_seed, tidx.dirty) == (
+        200.0, 2, N + 2, True)
+    # both go on from the carried state alike: the next insert draws the
+    # same levels and compact() requantizes to the same scale
+    more = np.full((3, D), 7.0, np.float32)
+    for idx in (jidx, tidx):
+        idx.insert(more, [N + 5, N + 6, N + 7])
+        idx.compact()
+    assert tidx.vector_scale == jidx.vector_scale == 200.0 / 127.0
+    assert tidx.upper_used == jidx.upper_used and tidx.count == jidx.count
+    np.testing.assert_array_equal(tidx.graph.levels.numpy(), np.asarray(jidx.graph.levels))
+    np.testing.assert_array_equal(tidx.graph.vectors.numpy(), np.asarray(jidx.graph.vectors))

@@ -2,7 +2,8 @@
 
 A second package beside `vss_tpu` (the JAX reference, which it never
 imports); this file reproduces `vss_tpu/__init__.py` for the ported
-serving path. Plain tensor code is PyTorch; every TPU kernel on the ported
+modules: the serving path and the write path of `HNSWIndex`. Plain
+tensor code is PyTorch; every TPU kernel on the ported
 path is a hand-written CUDA kernel for sm_90a under `csrc/`, built with
 nvcc at first use, with a plain PyTorch version beside it for CPU
 tensors. Entry points run on the CUDA device unless `device="cpu"` is
@@ -15,6 +16,9 @@ passed.
                           method="native")
     dists, rowids = idx.search(queries, k=10, ef=64)
     dists, rowids = idx.scan_search(queries, k=10)
+    idx.insert(new_vectors, new_rowids)
+    idx.delete(old_rowids)
+    idx.compact()
 """
 import torch
 

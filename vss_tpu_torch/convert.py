@@ -50,10 +50,15 @@ def index_from_state(
     deleted_count: int = 0,
     free_slots: Iterable[int] = (),
     upper_used: int = 0,
+    scale_max_abs: float = 0.0,
+    scale_overflow: int = 0,
+    insert_seed: int = 0,
+    dirty: bool = False,
     device=None,
 ) -> HNSWIndex:
     """An HNSWIndex holding vss_tpu index state: the graph arrays plus the
-    host-side bookkeeping of `vss_tpu.index.dense.HNSWIndex`."""
+    host-side bookkeeping of `vss_tpu.index.dense.HNSWIndex`. The keyword
+    defaults are those of a fresh index."""
     idx = HNSWIndex(config, capacity=64, device=device)
     idx.graph = graph_from_arrays(arrays, idx.device)
     idx.vector_scale = float(vector_scale)
@@ -65,4 +70,8 @@ def index_from_state(
     idx.deleted_count = int(deleted_count)
     idx.free_slots = [int(s) for s in free_slots]
     idx.upper_used = int(upper_used)
+    idx.scale_max_abs = float(scale_max_abs)
+    idx.scale_overflow = int(scale_overflow)
+    idx._insert_seed = int(insert_seed)
+    idx.dirty = bool(dirty)
     return idx

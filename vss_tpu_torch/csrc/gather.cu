@@ -1,3 +1,6 @@
+// Two kernels: K1 (fused gather + distance) here, K5 (whole-row gather)
+// at the end of the file.
+//
 // K1: fused gather + distance, the beam search's hot step.
 //
 // Replaces vss_tpu/ops/gather.py:_gather_dist_kernel (launched by
@@ -131,4 +134,87 @@ extern "C" int vss_gather_distances(const int32_t* ids, const float* q,
   if (dtype == BF16)
     return launch<__nv_bfloat16>(ids, q, qn, table, out, B, C, d, metric, s);
   return launch<float>(ids, q, qn, table, out, B, C, d, metric, s);
+}
+
+// K5: whole-row gather, out[i, :] = table[max(ids[i], 0), :].
+//
+// Replaces vss_tpu/ops/gather.py:_gather_kernel (launched by
+// _gather_rows_impl behind gather_rows_pallas / gather_rows). A copy of
+// bytes whatever the element type: int8 / bf16 / f32 vector rows and i32
+// adjacency rows. With skip_neg an id < 0 issues no load and its output
+// row is zeros (the TPU kernel left it undefined).
+//
+// Bound on the H100: bytes only, (2 * row_bytes + 4) per row over
+// 3.35 TB/s. Permuting a 2M-row tape moves 0.26 GB (128-B int8 rows) or
+// 1.0 GB (512-B f32 rows), 0.16 ms and 0.62 ms; one wave's candidate
+// gather (1024 x 144 rows of 128 B) moves 38 MB, 0.011 ms, so that shape
+// is bound by launch and the latency of dependent random reads. Design:
+// nothing of the TPU kernel's rolling DMA window, semaphores, 512-row
+// programs or 128-lane width rule is carried over. A power-of-two group
+// of lanes copies one row with the widest accesses (16, 8, 4, 2 or 1
+// bytes) that the row width and both base pointers allow, neighbouring
+// lanes on neighbouring addresses; a warp keeps 32/group rows' loads in
+// flight; each block reads its own ids; one block per 256/group rows
+// covers the card at any id count. Offsets are 64-bit: rows * row_bytes
+// passes 2^31 for large tapes.
+namespace vss {
+
+template <typename V>
+__global__ void __launch_bounds__(256)
+    gather_rows_kernel(const int32_t* __restrict__ ids,
+                       const V* __restrict__ table, V* __restrict__ out,
+                       int64_t n, int64_t chunks, int group, bool skip_neg) {
+  const int rows_per_block = blockDim.x / group;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * rows_per_block + threadIdx.x / group;
+  if (i >= n) return;
+  const int gl = threadIdx.x % group;
+  const int id = ids[i];
+  V* dst = out + i * chunks;
+  if (id < 0 && skip_neg) {
+    const V zero{};
+    for (int64_t c = gl; c < chunks; c += group) dst[c] = zero;
+    return;
+  }
+  const V* src = table + static_cast<int64_t>(id < 0 ? 0 : id) * chunks;
+  for (int64_t c = gl; c < chunks; c += group) dst[c] = src[c];
+}
+
+template <typename V>
+int launch_rows(const int32_t* ids, const void* table, void* out, int64_t n,
+                int64_t row_bytes, bool skip_neg, cudaStream_t s) {
+  const int64_t chunks = row_bytes / static_cast<int64_t>(sizeof(V));
+  int group = 1;
+  while (group < chunks && group < 32) group <<= 1;
+  const int64_t rows_per_block = 256 / group;
+  const int64_t blocks = cdiv(n, rows_per_block);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  gather_rows_kernel<V><<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+      ids, static_cast<const V*>(table), static_cast<V*>(out), n, chunks,
+      group, skip_neg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace vss
+
+extern "C" int vss_gather_rows(const int32_t* ids, const void* table,
+                               void* out, int64_t n, int64_t row_bytes,
+                               int skip_neg, void* stream) {
+  using namespace vss;
+  if (n <= 0 || row_bytes <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the widest access that divides the row width and both base addresses
+  const uint64_t align = static_cast<uint64_t>(row_bytes) |
+                         reinterpret_cast<uint64_t>(table) |
+                         reinterpret_cast<uint64_t>(out);
+  const bool skip = skip_neg != 0;
+  if (align % 16 == 0)
+    return launch_rows<uint4>(ids, table, out, n, row_bytes, skip, s);
+  if (align % 8 == 0)
+    return launch_rows<uint2>(ids, table, out, n, row_bytes, skip, s);
+  if (align % 4 == 0)
+    return launch_rows<uint32_t>(ids, table, out, n, row_bytes, skip, s);
+  if (align % 2 == 0)
+    return launch_rows<uint16_t>(ids, table, out, n, row_bytes, skip, s);
+  return launch_rows<uint8_t>(ids, table, out, n, row_bytes, skip, s);
 }

@@ -1,4 +1,4 @@
-"""HNSW index core: graph arrays, batched search, native build, the index.
+"""HNSW index core: graph arrays, batched search, construction, CRUD.
 
 Reproduces `vss_tpu/index/__init__.py` for the ported modules.
 """

@@ -116,6 +116,12 @@ class HNSWGraph:
     def device(self) -> torch.device:
         return self.vectors.device
 
+    def clone(self) -> "HNSWGraph":
+        """A graph with its own copy of every tensor."""
+        return HNSWGraph(**{
+            f.name: getattr(self, f.name).clone() for f in dataclasses.fields(self)
+        })
+
     def to(self, device) -> "HNSWGraph":
         return HNSWGraph(**{
             f.name: getattr(self, f.name).to(device)

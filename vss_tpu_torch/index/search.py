@@ -1,6 +1,8 @@
 """Batched HNSW search: seeding + base-layer beam search + exact rerank.
 
-Reproduces `vss_tpu/index/search.py` (the serving subset):
+Reproduces `vss_tpu/index/search.py`: the serving search and, through
+the `level` argument of `beam_search_base`, the construction beams of
+`index/build.py`:
 
   * batch-first: a whole [B] batch of queries traverses in lockstep;
     per-query early exit is a `done` mask;
@@ -11,8 +13,10 @@ Reproduces `vss_tpu/index/search.py` (the serving subset):
     `valid & filter` nodes.
 
 Every distance the search computes goes through kernel K1
-(`ops/gather.gather_distances`): on CUDA the hand-written fused
-gather+score kernel, on the CPU its plain version. The JAX package's
+(`ops/gather.gather_distances`), and every whole-row gather (adjacency
+rows, the rerank tape's rows) through kernel K5
+(`ops/gather.gather_rows`): on CUDA the hand-written kernels, on the CPU
+their plain versions. The JAX package's
 `lax.while_loop` is a Python loop here; it checks the done latch on the
 host every `_SYNC_EVERY` iterations. Iterations after every query is
 done change nothing, so the result equals a check every iteration.
@@ -25,7 +29,7 @@ import torch
 
 from vss_tpu_torch.index.graph import HNSWConfig, HNSWGraph
 from vss_tpu_torch.ops.distance import Metric, _epilogue, gathered_distances
-from vss_tpu_torch.ops.gather import gather_distances
+from vss_tpu_torch.ops.gather import gather_distances, gather_rows
 from vss_tpu_torch.ops.topk import _select_min_k
 
 __all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "beam_search_base"]
@@ -43,7 +47,7 @@ def _descent_step(graph: HNSWGraph, config: HNSWConfig, q, state, q_norms):
     col = (lvl - 1).clamp(min=0)
     row = graph.upper_row[cur.long()].gather(1, col[:, None].long())[:, 0]
     active = (lvl > 0) & (row >= 0)
-    neigh = graph.upper_adj[row.clamp(min=0).long()]  # [B, M]
+    neigh = gather_rows(graph.upper_adj, row)  # [B, M]
     neigh = torch.where(active[:, None], neigh, -1)
     nd = gather_distances(graph.vectors, neigh, q, config.metric, q_norms)
     j = torch.argmin(nd, dim=1, keepdim=True)
@@ -142,6 +146,18 @@ def _dedupe_across_groups(neigh: torch.Tensor, E: int, m0: int) -> torch.Tensor:
     return torch.cat(cols, 1)
 
 
+def _dedupe_keep_first(ids: torch.Tensor) -> torch.Tensor:
+    """Per row: replace duplicate ids (keeping the first occurrence) with
+    -1. The stable sort keeps equal ids in position order, so the first
+    of each run is the first occurrence."""
+    sorted_ids, sorted_pos = torch.sort(ids, dim=1, stable=True)
+    dup_sorted = torch.zeros_like(ids, dtype=torch.bool)
+    dup_sorted[:, 1:] = sorted_ids[:, 1:] == sorted_ids[:, :-1]
+    # route the dup flags back to the original positions
+    dup = torch.zeros_like(dup_sorted).scatter_(1, sorted_pos, dup_sorted)
+    return torch.where(dup, -1, ids)
+
+
 def _sort_by(d: torch.Tensor, i: torch.Tensor):
     """Stable ascending sort of d along dim 1, carrying i."""
     d, order = torch.sort(d, dim=1, stable=True)
@@ -158,14 +174,18 @@ def beam_search_base(
     allow: torch.Tensor,
     expand: int = 1,
     max_iters: int = 0,
+    level: int = 0,
     q_norms: Optional[torch.Tensor] = None,
     dual_pool: bool = True,
     use_history: bool = True,
 ):
-    """Base-layer beam search with pool size `ef` from per-query seeds.
+    """Beam search with pool size `ef` from per-query seeds.
 
     allow: bool [cap], nodes admissible to the RESULT pool (valid & not
-    tombstoned & user predicate); traversal ignores it. dual_pool=False
+    tombstoned & user predicate); traversal ignores it. With `level` >= 1
+    the beam runs over that upper level's adjacency (`upper_adj` through
+    `upper_row[:, level - 1]`, fan-out `m`), as construction does to
+    collect each level's candidates. dual_pool=False
     merges the two pools (valid only when every reachable node is
     admissible). use_history=False drops the expansion history.
 
@@ -174,7 +194,7 @@ def beam_search_base(
     """
     B = q.shape[0]
     dev = q.device
-    m0 = config.m0
+    m0 = config.m0 if level == 0 else config.m
     E = expand
     if max_iters <= 0:
         max_iters = 4 + (2 * ef) // E
@@ -207,6 +227,14 @@ def beam_search_base(
         worst = res_d[:, ef - 1] if dual_pool else cand_d[:, ef - 1]
         return (unexp_min > worst) | ~torch.isfinite(unexp_min)
 
+    def neighbors_of(ids):  # ids [B, E] -> [B, E*m0]
+        if level == 0:
+            adj = gather_rows(graph.adj0, ids)
+        else:
+            row = graph.upper_row[:, level - 1][ids.clamp(min=0).long()]
+            adj = torch.where((row >= 0)[:, :, None], gather_rows(graph.upper_adj, row), -1)
+        return torch.where((ids >= 0)[:, :, None], adj, -1).reshape(B, E * m0)
+
     pool_pos = torch.arange(ef, device=dev)[None, :]
     done = done_mask(cand_d, expanded, res_d)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
@@ -229,8 +257,7 @@ def beam_search_base(
         if use_history:
             hist[:, it * E:(it + 1) * E] = sel_ids
 
-        neigh = graph.adj0[sel_ids.clamp(min=0).long()]  # [B, E, m0]
-        neigh = torch.where((sel_ids >= 0)[:, :, None], neigh, -1).reshape(B, E * m0)
+        neigh = neighbors_of(sel_ids)  # [B, E*m0]
         known = [cand_i]
         if use_history:
             known.append(hist)
@@ -352,7 +379,7 @@ def hnsw_search(
     )
     if rerank_tape is not None:
         # exact rescoring of the ef-wide pool against the side tape
-        rv = rerank_tape[res_i.clamp(min=0).long()].float()
+        rv = gather_rows(rerank_tape, res_i).float()
         if metric == Metric.L2SQ:
             # direct difference form: the dot-product identity loses
             # digits to cancellation at byte magnitudes

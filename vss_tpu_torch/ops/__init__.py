@@ -9,7 +9,7 @@ from vss_tpu_torch.ops.distance import (
     gathered_distances,
     pairwise,
 )
-from vss_tpu_torch.ops.gather import gather_distances
+from vss_tpu_torch.ops.gather import gather_distances, gather_rows
 from vss_tpu_torch.ops.scan import scan_topk
 from vss_tpu_torch.ops.topk import bruteforce_topk, merge_topk
 
@@ -20,6 +20,7 @@ __all__ = [
     "distance_one",
     "gathered_distances",
     "gather_distances",
+    "gather_rows",
     "bruteforce_topk",
     "merge_topk",
     "scan_topk",

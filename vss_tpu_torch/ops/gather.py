@@ -1,12 +1,15 @@
-"""Fused gather + distance: the beam search's hot step.
+"""Row gathers: the fused gather + distance of the beam search (K1) and
+the whole-row gather of the write path (K5).
 
-Reproduces `vss_tpu/ops/gather.py:142-250, 341-370`
+Reproduces `vss_tpu/ops/gather.py:39-128` (`_gather_kernel`,
+`gather_rows_pallas`, `gather_rows`) and `:142-250, 341-370`
 (`_gather_dist_kernel` and its wrapper `gather_distances_pallas`).
-`gather_distances` is the K1 wrapper: the hand-written CUDA kernel
-(`csrc/gather.cu`) for CUDA tensors, `_gather_distances_plain` for CPU
-tensors. The table is taken in its own dtype (int8 / bf16 / f32, any
-width); the TPU's i32-word packing (`pack_table`, `plane_queries`)
-existed only for Mosaic's DMA rules and is not ported.
+`gather_distances` is the K1 wrapper and `gather_rows` the K5 wrapper:
+the hand-written CUDA kernels (`csrc/gather.cu`) for CUDA tensors,
+`_gather_distances_plain` / `_gather_rows_plain` for CPU tensors. Tables
+are taken in their own dtype at any width; the TPU's i32-word packing
+(`pack_table`, `plane_queries`) and 128-lane width rule existed only for
+Mosaic's DMA rules and are not ported.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from vss_tpu_torch import csrc
 from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue
 
-__all__ = ["gather_distances"]
+__all__ = ["gather_distances", "gather_rows"]
 
 _INF = float("inf")
 
@@ -25,6 +28,11 @@ _K1 = csrc.register(csrc.Kernel(
     "gather_distances", "gather", "vss_gather_distances",
     [csrc.PTR, csrc.PTR, csrc.PTR, csrc.PTR, csrc.PTR,
      csrc.I32, csrc.I32, csrc.I32, csrc.I32, csrc.I32],
+))
+
+_K5 = csrc.register(csrc.Kernel(
+    "gather_rows", "gather", "vss_gather_rows",
+    [csrc.PTR, csrc.PTR, csrc.PTR, csrc.I64, csrc.I64, csrc.I32],
 ))
 
 
@@ -72,3 +80,35 @@ def gather_distances(
             csrc.dtype_code(table.dtype), METRIC_IDS[metric],
         )
     return out
+
+
+def _gather_rows_plain(table, ids, skip_neg: bool = False):
+    """Plain version of K5: index the clamped ids; zeros where skipped."""
+    out = table[ids.clamp(min=0).long()]
+    if skip_neg:
+        out = torch.where((ids >= 0)[..., None], out, torch.zeros((), dtype=table.dtype))
+    return out
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor, skip_neg: bool = False) -> torch.Tensor:
+    """table[max(ids, 0)] -> ids.shape + (row,), in the table's dtype.
+
+    table [N, row] of any dtype (vector rows, adjacency rows); ids of any
+    shape, integer. Negative ids are clamped to row 0 and masked by the
+    caller; with skip_neg they read nothing and give a row of zeros."""
+    if table.dim() != 2:
+        raise ValueError(f"gather_rows: table must be [N, row], got {tuple(table.shape)}")
+    if table.device.type == "cpu":
+        return _gather_rows_plain(table, ids, skip_neg)
+    row = table.shape[1]
+    table = table.contiguous()
+    flat = ids.reshape(-1).to(torch.int32).contiguous()
+    out = torch.empty((flat.shape[0], row), dtype=table.dtype, device=table.device)
+    if flat.shape[0] and row:
+        if table.shape[0] == 0:
+            raise ValueError("gather_rows: ids given for an empty table")
+        _K5.launch(
+            (table, flat, out), flat.data_ptr(), table.data_ptr(), out.data_ptr(),
+            flat.shape[0], row * table.element_size(), int(skip_neg),
+        )
+    return out.reshape(tuple(ids.shape) + (row,))
