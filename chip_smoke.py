@@ -16,14 +16,19 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     (sentinel ids, invalid rows, zero vectors under cosine, NaN queries,
     all three metrics, int8 / bf16 / f32 tapes, widths that need padding
     or narrow accesses), and time kernel, plain version and, where one
-    exists, a single PyTorch library call for the same work;
+    exists, a single PyTorch library call for the same work. After the
+    index is built, the same for the beam_search kernel (`check_beam`):
+    the serving call and a grid of variants against the eager loop that
+    launches K1 and K5 once per iteration, which it must equal exactly;
  4. serve the flagship: a SIFT-like synthetic corpus of 1,000,000 x 128
     (the generator of bench.py, seed 0) in an int8 index with the f32
     rerank tape, built by the native builder on all host threads, with
     2,048 queries in batches of 512. The exact oracle (`bruteforce_topk`:
     K3 at k=10, K4 at k=100) gives the ground truth; `scan_search` (K2)
-    and the graph `search` at ef=64 (K1) are scored by recall. Launch
-    counters are zeroed just before each path and read just after it;
+    and the graph `search` at ef=64 (one beam_search launch per batch,
+    K1 for the seed rescoring, K5 for the rerank gather) are scored by
+    recall. Launch counters are zeroed just before each path and read
+    just after it;
  5. write to the same index, with new rows from the same generator and
     cluster centres: insert 32,768 rows in waves of 1,024 (the capacity
     doubles), tombstone 20% of all rows and search through them, insert
@@ -46,7 +51,11 @@ absolute difference must stay under 1e-5 of the magnitude of the terms
 proxy: max |x|^2 + 2 max |q| max |x| for l2sq, max |q| for cosine), and
 +inf (sentinels, invalid rows, NaN distances) must sit in the same
 places. K5 copies bytes: kernel and plain version must be equal bit for
-bit.
+bit. The beam_search kernel scores with K1's code, so on the card it
+must equal the eager loop through K1 and K5 exactly (distances bit for
+bit, ids, both counters). Against the eager loop on the CPU, whose
+distances differ in the last digits, near-ties may order differently:
+there recall@10 must agree within 0.002 and the top-10 ids for 0.99.
 """
 from __future__ import annotations
 
@@ -389,6 +398,273 @@ def check_k5(dev, tape, rerank, adj0, rng):
                 shapes=shapes)
 
 
+def host_us_per_call(dev, tape, adj0, q_scaled) -> dict:
+    """Host microseconds per call of the K1 and K5 wrappers at the shapes
+    the beam used to launch them at, beside `torch.index_select`: 200
+    calls on the host clock, one synchronize at their end."""
+    from vss_tpu_torch.ops import gather as g
+
+    cap = tape.shape[0]
+    ids1 = torch.randint(0, cap, (BATCH, 32), dtype=torch.int32, device=dev)
+    ids5 = torch.randint(0, cap, (WAVE, 4), dtype=torch.int32, device=dev)
+    long5 = ids5.reshape(-1).long()
+    qn = (q_scaled * q_scaled).sum(-1)
+
+    def per_call(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    # what K5's wrapper is made of: the allocation of its output, and the
+    # launch through ctypes alone with the arguments ready
+    out5 = torch.empty((WAVE, 4, adj0.shape[1]), dtype=adj0.dtype, device=dev)
+    fn = g._K5._entry()
+    stream = torch.cuda.current_stream().cuda_stream
+    bare = (ids5.data_ptr(), adj0.data_ptr(), out5.data_ptr(), ids5.numel(),
+            adj0.shape[1] * adj0.element_size(), 0, stream)
+    out = {}
+    for _ in range(2):  # the second round is the one kept
+        out = {
+            "gather_distances ids 512x32": per_call(
+                lambda: g.gather_distances(tape, ids1, q_scaled, "l2sq", qn)),
+            "gather_rows ids 1024x4 over adj0": per_call(lambda: g.gather_rows(adj0, ids5)),
+            "index_select ids 4096 over adj0": per_call(
+                lambda: torch.index_select(adj0, 0, long5)),
+            "torch.empty of gather_rows' output": per_call(
+                lambda: torch.empty((WAVE, 4, adj0.shape[1]), dtype=adj0.dtype, device=dev)),
+            "gather_rows' launch through ctypes alone": per_call(lambda: fn(*bare)),
+        }
+    log("host us per call (200 calls, one synchronize at the end): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def dependent_read_ns(dev) -> float:
+    """Nanoseconds of one dependent read from device memory: one thread
+    follows a random cycle through 64M int32 (256 MB, five times the L2
+    cache) for 20,000 steps a call, each call going on where the last one
+    stopped (`vss_pointer_chase` in csrc/probe.cu)."""
+    import ctypes
+
+    from vss_tpu_torch import csrc
+
+    lib = csrc.load("probe")
+    fn = lib.vss_pointer_chase
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    n, steps = 1 << 26, 20_000
+    order = torch.randperm(n, device=dev)
+    nxt = torch.empty(n, dtype=torch.int32, device=dev)
+    nxt[order] = order.roll(-1).to(torch.int32)  # one cycle through every slot
+    at = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def chase():
+        rc = fn(nxt.data_ptr(), steps, at.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"pointer chase: launch failed ({rc})")
+
+    ns = cuda_ms(chase, 3) * 1e6 / steps
+    log(f"dependent read from device memory: {ns:.1f} ns per step")
+    return ns
+
+
+def check_beam(dev, idx, q_scaled, rng) -> dict:
+    """The beam_search kernel against `_beam_search_base_plain`, the eager
+    loop that launches K1 and K5 once per iteration: on the card the two
+    must be equal exactly. The serving call (512 queries, ef=64, E=1,
+    single pool, pivot seeds, the 1M int8 tape) is timed; a grid of
+    variants runs at a smaller batch."""
+    from vss_tpu_torch import HNSWConfig, HNSWIndex, csrc
+    from vss_tpu_torch.index import search as sr
+    from vss_tpu_torch.ops import bruteforce_topk
+    from vss_tpu_torch.ops.gather import gather_distances
+
+    log("beam_search")
+    read_ns = dependent_read_ns(dev)
+
+    def same(a, b):
+        if a.dtype.is_floating_point:
+            return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+        return torch.equal(a, b)
+
+    def inputs(index, q, ef, E, level, seeds=None, allow=None):
+        g, cfg = index.graph, index.config
+        qn = (q * q).sum(-1)
+        if seeds is None:
+            pv_slots, pv_vecs = index.pivots()
+            seeds, _ = sr.pivot_seeds(g, cfg, q, pv_slots, pv_vecs, min(4, ef), qn)
+        seed_d = gather_distances(g.vectors, seeds if seeds.dim() == 2 else seeds[:, None],
+                                  q, cfg.metric, qn).reshape(seeds.shape)
+        allow = g.valid if allow is None else allow
+        return g, cfg, q, qn, seeds, seed_d, allow, 4 + (2 * ef) // E
+
+    def variant(label, index, q, ef, E=1, level=0, dual=False, hist=True, seeds=None,
+                allow=None, cpu=False, truth_x=None):
+        """Kernel == eager loop on the card, through `_beam_launch` on
+        pools seeded here and through the public `beam_search_base` with
+        its defaults (no query norms, max_iters=0); with `cpu`, also close
+        to the all-plain loop on the CPU."""
+        g, cfg, q, qn, seeds, seed_d, allow, mi = inputs(index, q, ef, E, level, seeds, allow)
+        want = sr._beam_search_base_plain(g, cfg, q, seeds, seed_d, ef, allow, E, mi, level,
+                                          qn, dual, hist)
+        fan = cfg.m0 if level == 0 else cfg.m
+        pools = sr._seed_pools(q, seeds, seed_d, ef, allow)
+        got = sr._beam_launch(g, cfg, q, qn, pools, ef, allow, E, mi, level, dual, hist)
+        public = sr.beam_search_base(g, cfg, q, seeds, seed_d, ef, allow, expand=E, max_iters=0,
+                                     level=level, q_norms=None, dual_pool=dual, use_history=hist)
+        torch.cuda.synchronize()
+        for entry, out in (("_beam_launch", got), ("beam_search_base", public)):
+            for name, a, b in zip(("res_d", "res_i", "cand_i"), out, want):
+                if not same(a, b):
+                    rows = int((~((a == b) | ((a != a) & (b != b)))).any(1).sum())
+                    fail(f"beam_search {label}, {entry}: {name} differs from the eager loop in "
+                         f"{rows} of {a.shape[0]} queries")
+            if (int(out[3][0]), int(out[3][1])) != (int(want[3][0]), int(want[3][1])):
+                fail(f"beam_search {label}, {entry}: iterations, evals "
+                     f"{[int(out[3][0]), int(out[3][1])]} != {[int(want[3][0]), int(want[3][1])]}")
+        if len(public[3]) != 2 or public[3][0].dim() != 0 or public[3][1].dim() != 0:
+            fail(f"beam_search {label}: beam_search_base's counters are not two 0-d tensors")
+        counts = [int(c) for c in got[3]]
+        py = sr.beam_smem_bytes(ef, E, fan, g.vectors.shape[1], mi, dual, hist)
+        line = (f"  {label}: equal to the eager loop (res_d, res_i, cand_i, iterations "
+                f"{counts[0]}, evals {counts[1]}), also through beam_search_base's defaults; "
+                f"{py} B shared")
+        if cpu:
+            gc = g.to("cpu")
+            ref = sr._beam_search_base_plain(
+                gc, cfg, q.cpu(), seeds.cpu(), seed_d.cpu(), ef, allow.cpu(), E, mi, level,
+                qn.cpu(), dual, hist)
+            _, truth = bruteforce_topk(q, truth_x, K, cfg.metric, valid_mask=allow[:truth_x.shape[0]],
+                                       device=dev)
+            truth = truth.cpu().numpy()
+            ids_k, ids_c = got[1][:, :K].cpu().numpy(), ref[1][:, :K].numpy()
+            r_k, r_c = recall(ids_k, truth), recall(ids_c, truth)
+            agree = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(ids_k, ids_c)]))
+            line += (f"; against the CPU loop: recall@10 {r_k:.4f} vs {r_c:.4f}, top-10 id "
+                     f"agreement {agree:.4f}")
+            if abs(r_k - r_c) > 0.002 or agree < 0.99:
+                fail(f"beam_search {label}: recall@10 {r_k} vs {r_c} on the CPU, id agreement "
+                     f"{agree}")
+        log(line)
+        return counts
+
+    # ---- the serving call, timed
+    ef, E = EF, 1
+    g, cfg, q, qn, seeds, seed_d, allow, mi = inputs(idx, q_scaled, ef, E, 0)
+    counts = variant(f"serving: {BATCH} queries ef={ef} E=1 single pool int8 d={D}", idx,
+                     q_scaled, ef)
+    reps = 10
+    times = []
+    want = sr._beam_search_base_plain(g, cfg, q, seeds, seed_d, ef, allow, E, mi, 0, qn, False,
+                                      True)
+    err = 0.0
+    for _ in range(3):
+        pool_sets = [sr._seed_pools(q, seeds, seed_d, ef, allow) for _ in range(reps + 1)]
+        it = iter(pool_sets)
+        times.append(cuda_ms(lambda: sr._beam_launch(g, cfg, q, qn, next(it), ef, allow, E, mi, 0,
+                                                     False, True), reps))
+        # the pools are updated in place: the last set holds this launch's result
+        got_d, got_i = pool_sets[-1][0], pool_sets[-1][1]
+        if not (same(got_d, want[0]) and same(got_i, want[1])):
+            fail("beam_search serving call: a timed launch differs from the eager loop")
+        finite = torch.isfinite(got_d) & torch.isfinite(want[0])
+        err = max(err, float((got_d - want[0])[finite].abs().max()) if bool(finite.any()) else 0.0)
+    log(f"  serving call, three rounds of {reps} launches: "
+        f"{', '.join(f'{t:.4f}' for t in times)} ms")
+    ms = min(times)
+    sr._beam_search_base_plain(g, cfg, q, seeds, seed_d, ef, allow, E, mi, 0, qn, False, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sr._beam_search_base_plain(g, cfg, q, seeds, seed_d, ef, allow, E, mi, 0, qn, False, True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    iters, evals, expansions = counts
+    row_bytes = g.vectors.shape[1] * g.vectors.element_size()
+    # bytes this run's data needs: the rows scored, the adjacency rows of
+    # the expanded nodes, the queries and norms, the pools in and out
+    bytes_moved = evals * row_bytes + expansions * cfg.m0 * 4 + BATCH * (D * 4 + 4) \
+        + 2 * BATCH * ef * 8
+    b_ms, b_by = bound(bytes_moved, 4.0 * evals * D, "f32")
+    floor_ms = iters * 2 * read_ns / 1e6
+    log(f"  serving call: kernel {ms:.4f} ms, largest |res_d - eager loop's| {err}, eager loop "
+        f"{plain_ms:.3f} ms wall, bound "
+        f"{b_ms:.5f} ms ({b_by}: {bytes_moved} B), dependent-read floor {floor_ms:.4f} ms "
+        f"({iters} iterations x 2 reads x {read_ns:.0f} ns)")
+
+    # ---- the construction call: one wave's base-level beam
+    wq = q_scaled.repeat(2, 1)[:WAVE] + 0.25
+    cg, ccfg, cq, cqn, cseeds, cseed_d, callow, cmi = inputs(idx, wq, cfg.ef_construction, 4, 0)
+    variant(f"construction: {WAVE} queries ef={cfg.ef_construction} E=4 single pool", idx, wq,
+            cfg.ef_construction, E=4)
+    pool_sets = iter([sr._seed_pools(cq, cseeds, cseed_d, cfg.ef_construction, callow)
+                      for _ in range(6)])
+    wave_ms = cuda_ms(lambda: sr._beam_launch(cg, ccfg, cq, cqn, next(pool_sets),
+                                              cfg.ef_construction, callow, 4, cmi, 0, False, True), 5)
+    log(f"  construction call: kernel {wave_ms:.4f} ms")
+
+    # ---- the grid at a smaller batch, on the 1M index
+    qs = q_scaled[:64].contiguous()
+    blocked = idx.graph.valid & torch.from_numpy(rng.random(idx.capacity) > 0.2).to(dev)
+    tape_f32 = idx.graph.vectors[:idx.count].float()
+    variant("dual pool, 20% of allow false", idx, qs, EF, dual=True, allow=blocked, cpu=True,
+            truth_x=tape_f32)
+    del tape_f32
+    variant("no history", idx, qs, EF, hist=False)
+    variant("dual pool, no history, E=2", idx, qs, EF, E=2, dual=True, hist=False, allow=blocked)
+    variant("E=2", idx, qs, EF, E=2)
+    variant("E=4", idx, qs, EF, E=4)
+    variant("ef=16", idx, qs, 16)
+    variant("ef=512 dual pool", idx, qs, 512, dual=True, allow=blocked)
+    upper = torch.nonzero(idx.graph.levels >= 1)[:, 0].to(torch.int32)
+    lvl_seeds = upper[torch.from_numpy(rng.integers(0, upper.numel(), 64)).to(dev)]
+    variant("level 1 over upper_adj, [B] seeds, E=4 ef=128", idx, qs, 128, E=4, level=1,
+            seeds=lvl_seeds)
+    variant("level 1, dual pool, E=1", idx, qs, 32, level=1, dual=True, seeds=lvl_seeds,
+            allow=blocked)
+    q_nan = qs.clone()
+    q_nan[3, 7] = float("nan")
+    variant("a query with a NaN component", idx, q_nan, EF, dual=True, allow=blocked)
+    pv_slots, pv_vecs = idx.pivots()
+    some, _ = sr.pivot_seeds(idx.graph, idx.config, qs, pv_slots, pv_vecs, 4, (qs * qs).sum(-1))
+    some[5] = -1
+    some[6, 1:] = -1
+    variant("an empty seed row", idx, qs, EF, seeds=some)
+
+    # ---- other tapes and metrics, a few thousand rows each
+    for storage, metric, d in (("bf16", "l2sq", 128), ("f32", "cosine", 96), ("f32", "ip", 128),
+                               ("f32", "l2sq", 100), ("int8", "cosine", 128)):
+        n = 4096
+        sv = rng.normal(size=(n, d)).astype(np.float32)
+        sq = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32)).to(dev)
+        small = HNSWIndex.build(sv, HNSWConfig(dims=d, metric=metric, storage_dtype=storage,
+                                               rerank="none"), method="native", device=dev)
+        sq = sq / small.vector_scale
+        tx = small.graph.vectors[:n].float()
+        variant(f"{storage} tape {n} x {d} {metric}", small, sq, 32, dual=True, cpu=True,
+                truth_x=tx)
+        variant(f"{storage} tape {n} x {d} {metric} E=2 single pool", small, sq, 32, E=2)
+
+    # ---- a shape that does not fit a block's shared memory raises
+    before = csrc.KERNELS["beam_search"].launches
+    try:
+        sr.beam_search_base(idx.graph, idx.config, qs, some, torch.zeros_like(some, dtype=torch.float32),
+                            20_000, idx.graph.valid)
+    except ValueError as e:
+        log(f"  ef=20000 raises ValueError: {e}")
+    else:
+        fail("beam_search: ef=20000 did not raise")
+    if csrc.KERNELS["beam_search"].launches != before:
+        fail("beam_search: the refused shape was launched")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err, dependent_read_ns=read_ns, dependent_read_floor_ms=floor_ms,
+                iterations=iters, evals=evals, expansions=expansions, ms_rounds=times,
+                construction_ms=wave_ms)
+
+
 # ----------------------------------------------------------------------
 # phase 4: the main path
 
@@ -504,7 +780,7 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
         f"inserted vectors returns the row itself for {self_hit:.4f}")
     if self_hit < 0.95:
         fail(f"only {self_hit} of the inserted rows find themselves")
-    for kname in ("gather_rows", "gather_distances"):
+    for kname in ("gather_rows", "gather_distances", "beam_search"):
         if steps[f"insert {N_INSERT} rows"]["launches"][kname] <= 0:
             fail(f"kernel {kname} was not launched by the insert step")
 
@@ -575,8 +851,9 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     log(f"wave build: {nb / wave_s:.1f} rows/s, recall@10 search ef={EF} {r_wave:.4f}")
     if r_wave < 0.9:
         fail(f"recall@10 of the wave-built index {r_wave} < 0.9")
-    if steps[f"wave build of {nb} rows"]["launches"]["gather_distances"] <= 0:
-        fail("kernel gather_distances was not launched by the wave build")
+    for kname in ("gather_distances", "beam_search"):
+        if steps[f"wave build of {nb} rows"]["launches"][kname] <= 0:
+            fail(f"kernel {kname} was not launched by the wave build")
     return {
         "card": smi, "steps": steps,
         "insert": {"rows": N_INSERT, "wave": WAVE, "rows_per_s": N_INSERT / ins_s,
@@ -656,7 +933,9 @@ def main() -> int:
         "scan_segmin": check_k3(dev, x, q, krng),
         "pairwise": check_k4(dev, x, q, krng),
         "gather_rows": check_k5(dev, idx.graph.vectors, idx.rerank_tape, idx.graph.adj0, krng),
+        "beam_search": check_beam(dev, idx, q_scaled, krng),
     }
+    host_us = host_us_per_call(dev, idx.graph.vectors, idx.graph.adj0, q_scaled)
     torch.cuda.synchronize()
 
     # ---- phase 4: the main path, each sub-path with the counts zeroed
@@ -742,17 +1021,26 @@ def main() -> int:
         "oracle_ms_per_batch": {"k10": gt_ms, "k100": gt100_ms},
         "launches_per_path": per_path,
         "profiles": profiles,
+        "host_us_per_call": host_us,
     }
     log("main path: " + json.dumps(summary))
     if r_scan < 0.99:
         fail(f"scan recall@10 {r_scan} < 0.99")
     if r_graph < 0.85:
         fail(f"graph recall@10 {r_graph} < 0.85")
-    needed = {"scan_segmin": "oracle k=10", "pairwise": "oracle k=100",
-              "native_segmin": "scan_search k=10", "gather_distances": f"search k=10 ef={EF}"}
-    for kname, label in needed.items():
-        if per_path[label][kname] <= 0:
-            fail(f"kernel {kname} was not launched on the path '{label}'")
+    graph_path = f"search k=10 ef={EF}"
+    needed = {"scan_segmin": ["oracle k=10"], "pairwise": ["oracle k=100"],
+              "native_segmin": ["scan_search k=10"], "beam_search": [graph_path],
+              # the seed rescoring and the rerank gather of the graph search
+              "gather_distances": [graph_path], "gather_rows": [graph_path]}
+    for kname, labels in needed.items():
+        for label in labels:
+            if per_path[label][kname] <= 0:
+                fail(f"kernel {kname} was not launched on the path '{label}'")
+    log(f"{graph_path}, {NQ // BATCH} batches: beam_search launched "
+        f"{per_path[graph_path]['beam_search']} times, gather_distances "
+        f"{per_path[graph_path]['gather_distances']}, gather_rows "
+        f"{per_path[graph_path]['gather_rows']}")
 
     # ---- phase 5: the write path, on the same index
     write = write_path(args.seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir)
@@ -765,12 +1053,15 @@ def main() -> int:
         "scan_segmin": ("vss_tpu_torch/csrc/topk.cu", "vss_tpu/ops/topk.py:134"),
         "pairwise": ("vss_tpu_torch/csrc/distance.cu", "vss_tpu/ops/distance.py:113"),
         "gather_rows": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:39"),
+        "beam_search": ("vss_tpu_torch/csrc/beam.cu",
+                        "vss_tpu/ops/gather.py:142 and :39 inside the loop of "
+                        "vss_tpu/index/search.py:442"),
     }
     table = [
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
          "launches": launches[kname], **results[kname]}
         for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
-                      "gather_rows")
+                      "gather_rows", "beam_search")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

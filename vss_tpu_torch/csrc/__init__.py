@@ -32,8 +32,11 @@ SOURCES = {
     "scan": "scan.cu",
     "topk": "topk.cu",
     "distance": "distance.cu",
+    "beam": "beam.cu",
+    # a latency measurement, not a kernel of any path (see probe.cu)
+    "probe": "probe.cu",
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "gather.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -143,6 +146,13 @@ I32 = ctypes.c_int32
 I64 = ctypes.c_int64
 
 
+def _current_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device `index`, from
+    PyTorch's own getter of it: it spares the `torch.cuda.Stream` object
+    that `torch.cuda.current_stream` builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 class Kernel:
     """One hand-written CUDA kernel behind a C entry point `symbol` in
     lib<library>.so. The entry point takes the given arguments plus the
@@ -172,20 +182,22 @@ class Kernel:
     def launch(self, operands, *args) -> None:
         """Launch on the current stream of the one CUDA device that holds
         every tensor in `operands`; raise on a launch error."""
-        devices = {t.device for t in operands}
-        device = devices.pop()
-        if devices or device.type != "cuda":
+        device = operands[0].device
+        for t in operands:
+            if t.device != device:
+                device = None
+                break
+        if device is None or device.type != "cuda":
             raise ValueError(f"{self.name}: kernel needs its tensors on one CUDA device, "
                              f"got {sorted(str(t.device) for t in operands)}")
-        index = device.index if device.index is not None else torch.cuda.current_device()
-        if index != torch.cuda.current_device():
+        index = torch.cuda.current_device()
+        if device.index is not None and device.index != index:
             raise ValueError(
-                f"{self.name}: tensors on cuda:{index} but the current device "
-                f"is cuda:{torch.cuda.current_device()}"
+                f"{self.name}: tensors on cuda:{device.index} but the current device "
+                f"is cuda:{index}"
             )
-        fn = self._entry()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
+        fn = self._fn or self._entry()
+        rc = fn(*args, _current_stream(index))
         if rc != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed ({rc}: "

@@ -18,38 +18,12 @@
 // per row up to 32; 8 lanes for a 128-B int8 row) scores one candidate
 // with 16-byte loads, computing the dot and the row norm in one pass,
 // and reduces with shuffles inside the group. Each warp has 32/G
-// candidates' loads in flight at once; sentinel ids cost nothing.
-#include "common.cuh"
+// candidates' loads in flight at once; sentinel ids cost nothing. The
+// row scorer (`score_row`) and K5's row copy (`copy_row`) live in
+// gather.cuh, which the beam kernel (beam.cu) shares.
+#include "gather.cuh"
 
 namespace vss {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return static_cast<float>(v);
-}
-
-// one 16-byte load: 16 int8, 8 bf16 or 4 f32 values
-__device__ __forceinline__ void load_vec(const int8_t* p, float v[16]) {
-  load16(p, v);
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float v[16]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  bf16x2(u.x, v[0], v[1]);
-  bf16x2(u.y, v[2], v[3]);
-  bf16x2(u.z, v[4], v[5]);
-  bf16x2(u.w, v[6], v[7]);
-}
-__device__ __forceinline__ void load_vec(const float* p, float v[16]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = a.z;
-  v[3] = a.w;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -59,7 +33,6 @@ __global__ void __launch_bounds__(256)
                        const T* __restrict__ table, float* __restrict__ out,
                        int C, int d, int metric, int group, bool vec) {
   extern __shared__ float qs[];
-  constexpr int VE = 16 / sizeof(T);  // elements per 16-byte load
   const int64_t b = blockIdx.x;
   for (int e = threadIdx.x; e < d; e += blockDim.x) qs[e] = q[b * d + e];
   __syncthreads();
@@ -70,31 +43,9 @@ __global__ void __launch_bounds__(256)
   for (int base = 0; base < C; base += ngroups) {
     const int c = base + g;
     const int id = c < C ? ids[b * C + c] : -1;
-    float dot = 0.0f, xn = 0.0f;
-    if (id >= 0) {
-      const T* row = table + static_cast<int64_t>(id) * d;
-      if (vec) {
-        for (int v = gl; v < d / VE; v += group) {
-          float xv[16];
-          load_vec(row + v * VE, xv);
-#pragma unroll
-          for (int e = 0; e < VE; ++e) {
-            dot = fmaf(xv[e], qs[v * VE + e], dot);
-            xn = fmaf(xv[e], xv[e], xn);
-          }
-        }
-      } else {
-        for (int e = gl; e < d; e += group) {
-          const float xv = to_f32(row[e]);
-          dot = fmaf(xv, qs[e], dot);
-          xn = fmaf(xv, xv, xn);
-        }
-      }
-    }
-    for (int off = group >> 1; off > 0; off >>= 1) {
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      xn += __shfl_xor_sync(0xffffffffu, xn, off);
-    }
+    float dot, xn;
+    score_row<T>(id >= 0 ? table + static_cast<int64_t>(id) * d : nullptr, qs,
+                 d, group, gl, vec, dot, xn);
     if (gl == 0 && c < C)
       out[b * C + c] = id >= 0 ? epilogue(dot, qnb, xn, metric) : CUDART_INF_F;
   }
@@ -104,11 +55,9 @@ template <typename T>
 int launch(const int32_t* ids, const float* q, const float* qn,
            const void* table, float* out, int B, int C, int d, int metric,
            cudaStream_t s) {
-  constexpr int VE = 16 / sizeof(T);
-  const bool vec = d % VE == 0;
-  const int chunks = vec ? d / VE : d;
-  int group = 1;
-  while (group < chunks && group < 32) group <<= 1;
+  int group;
+  bool vec;
+  row_grouping<T>(d, group, vec);
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -177,7 +126,7 @@ __global__ void __launch_bounds__(256)
     return;
   }
   const V* src = table + static_cast<int64_t>(id < 0 ? 0 : id) * chunks;
-  for (int64_t c = gl; c < chunks; c += group) dst[c] = src[c];
+  copy_row(dst, src, chunks, gl, group);
 }
 
 template <typename V>

@@ -12,14 +12,24 @@ the `level` argument of `beam_search_base`, the construction beams of
     tombstones (deleted nodes still route); the result pool only admits
     `valid & filter` nodes.
 
-Every distance the search computes goes through kernel K1
-(`ops/gather.gather_distances`), and every whole-row gather (adjacency
-rows, the rerank tape's rows) through kernel K5
-(`ops/gather.gather_rows`): on CUDA the hand-written kernels, on the CPU
-their plain versions. The JAX package's
-`lax.while_loop` is a Python loop here; it checks the done latch on the
-host every `_SYNC_EVERY` iterations. Iterations after every query is
-done change nothing, so the result equals a check every iteration.
+The JAX package runs the beam as one `lax.while_loop` with its gather
+kernels inside. Here, for CUDA tensors, `beam_search_base` is one launch
+of the `beam_search` kernel (`csrc/beam.cu`): one thread block per query
+runs the whole loop with the pools in shared memory, the adjacency load
+(kernel K5's work) and the scoring (kernel K1's) as device functions
+inside it, and no host sync. Nothing of one query's state is read by
+another, so the batch's lockstep loop and B independent loops give the
+same pools; the iteration counter is the largest any query ran.
+
+`_beam_search_base_plain` is that kernel's plain version and what runs
+for CPU tensors: the lockstep loop in PyTorch, every distance through K1
+(`ops/gather.gather_distances`) and every adjacency gather through K5
+(`ops/gather.gather_rows`), each the hand-written kernel on CUDA and its
+plain version on the CPU. It checks the done latch on the host every
+`_SYNC_EVERY` iterations; iterations after every query is done change
+nothing, so the result equals a check every iteration. The seed
+rescoring, the rerank gather and `greedy_descent` go through K1 and K5
+on their own.
 """
 from __future__ import annotations
 
@@ -27,17 +37,29 @@ from typing import Optional
 
 import torch
 
+from vss_tpu_torch import csrc
 from vss_tpu_torch.index.graph import HNSWConfig, HNSWGraph
-from vss_tpu_torch.ops.distance import Metric, _epilogue, gathered_distances
+from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue, gathered_distances
 from vss_tpu_torch.ops.gather import gather_distances, gather_rows
 from vss_tpu_torch.ops.topk import _select_min_k
 
-__all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "beam_search_base"]
+__all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "beam_search_base",
+           "beam_smem_bytes"]
 
 _INF = float("inf")
 
-# host syncs of the beam's done latch: one per this many iterations
+# host syncs of the plain beam loop's done latch: one per this many iterations
 _SYNC_EVERY = 4
+
+# the limits csrc/beam.cu holds itself to: a block's shared memory, and
+# one thread per neighbour slot (E * fan-out)
+_BEAM_MAX_SMEM = 232448
+_BEAM_MAX_THREADS = 1024
+
+_BEAM = csrc.register(csrc.Kernel(
+    "beam_search", "beam", "vss_beam_search",
+    [csrc.PTR] * 11 + [csrc.I32] * 13,
+))
 
 
 def _descent_step(graph: HNSWGraph, config: HNSWConfig, q, state, q_norms):
@@ -164,6 +186,110 @@ def _sort_by(d: torch.Tensor, i: torch.Tensor):
     return d, i.gather(1, order)
 
 
+def _seed_pools(q, seeds, seed_d, ef: int, allow):
+    """The pools before the first iteration: (cand_d, cand_i, res_d, res_i),
+    each [B, ef], sorted ascending, the seeds at their head."""
+    B = q.shape[0]
+    dev = q.device
+    # seeds may be [B] (single seed, the descent path) or [B, S]
+    if seeds.dim() == 1:
+        seeds = seeds[:, None]
+        seed_d = seed_d[:, None]
+    seeds = seeds.to(torch.int32)
+    S = seeds.shape[1]
+    cand_d = torch.full((B, ef), _INF, device=dev)
+    cand_d[:, :S] = seed_d
+    cand_i = torch.full((B, ef), -1, dtype=torch.int32, device=dev)
+    cand_i[:, :S] = seeds
+    seed_ok = allow[seeds.clamp(min=0).long()] & (seeds >= 0)
+    res_d = torch.full((B, ef), _INF, device=dev)
+    res_d[:, :S] = torch.where(seed_ok, seed_d, _INF)
+    res_i = torch.full((B, ef), -1, dtype=torch.int32, device=dev)
+    res_i[:, :S] = torch.where(seed_ok, seeds, -1)
+    if S > 1:
+        # pools are kept sorted ascending (the merge relies on it)
+        cand_d, cand_i = _sort_by(cand_d, cand_i)
+        res_d, res_i = _sort_by(res_d, res_i)
+    return cand_d, cand_i, res_d, res_i
+
+
+def beam_smem_bytes(ef: int, expand: int, fan: int, d: int, max_iters: int,
+                    dual_pool: bool, use_history: bool) -> int:
+    """Shared-memory bytes one block of the beam kernel needs: the layout
+    arithmetic of `csrc/beam.cu` (`beam_layout`), which refuses a launch
+    whose count differs from its own."""
+    n = expand * fan
+    pow2 = 1 << (ef + n - 1).bit_length()
+    hist_len = max_iters * expand if use_history else 0
+    total = (4 * d + (17 if dual_pool else 9) * pow2 + 4 * hist_len + 10 * n
+             + 4 * (32 + 32 + 4))
+    return (total + 15) // 16 * 16
+
+
+def _beam_search_base_cuda(graph, config, q, seeds, seed_d, ef, allow, E, max_iters, level,
+                           q_norms, dual_pool, use_history):
+    """Seed the pools and launch the beam kernel once over the batch."""
+    q = q.float()
+    if q_norms is None:
+        q_norms = (q * q).sum(-1)
+    pools = _seed_pools(q, seeds, seed_d, ef, allow)
+    res_d, res_i, cand_i, counters = _beam_launch(
+        graph, config, q, q_norms.float(), pools, ef, allow, E, max_iters, level,
+        dual_pool, use_history)
+    return res_d, res_i, cand_i, (counters[0], counters[1])
+
+
+def _beam_launch(graph, config, q, qn, pools, ef, allow, E, max_iters, level, dual_pool,
+                 use_history):
+    """One launch of the `beam_search` kernel over pools seeded by
+    `_seed_pools`, which it updates in place. Returns (res_d, res_i,
+    cand_i, counters) with counters an int64 [3] tensor: iterations, rows
+    scored, nodes expanded."""
+    fan = config.m0 if level == 0 else config.m
+    n = E * fan
+    B, d = q.shape[0], graph.vectors.shape[1]
+    need = beam_smem_bytes(ef, E, fan, d, max_iters, dual_pool, use_history)
+    if need > _BEAM_MAX_SMEM:
+        raise ValueError(
+            f"beam_search: ef={ef}, E={E}, m0={fan} need {need} bytes of shared memory "
+            f"per query, over the {_BEAM_MAX_SMEM} a block may have")
+    if n > _BEAM_MAX_THREADS:
+        raise ValueError(
+            f"beam_search: E={E}, m0={fan} need one thread per neighbour slot, "
+            f"{n} of at most {_BEAM_MAX_THREADS}")
+    q = csrc.operand(q)
+    qn = csrc.operand(qn)
+    table = csrc.operand(graph.vectors)
+    adj = (graph.adj0 if level == 0 else graph.upper_adj).contiguous()
+    upper_row = graph.upper_row.contiguous()
+    allow = allow.contiguous()
+    cand_d, cand_i, res_d, res_i = (t.contiguous() for t in pools)
+    if q.shape != (B, d) or qn.shape != (B,) or q.dtype != torch.float32 \
+            or qn.dtype != torch.float32 or cand_d.shape != (B, ef):
+        raise ValueError(f"beam_search: q {tuple(q.shape)} {q.dtype}, q norms "
+                         f"{tuple(qn.shape)} {qn.dtype}, pools {tuple(cand_d.shape)} and tape "
+                         f"{tuple(graph.vectors.shape)} disagree")
+    if adj.shape[1] != fan or adj.dtype != torch.int32 or upper_row.dtype != torch.int32 \
+            or allow.dtype != torch.bool or level > upper_row.shape[1]:
+        raise ValueError(f"beam_search: adjacency {tuple(adj.shape)} {adj.dtype}, upper_row "
+                         f"{tuple(upper_row.shape)} {upper_row.dtype}, allow {allow.dtype} "
+                         f"do not fit level {level}, fan-out {fan}")
+    counters = torch.zeros(3, dtype=torch.int64, device=q.device)
+    if B:
+        _BEAM.launch(
+            (q, qn, table, adj, upper_row, allow, cand_d, cand_i, res_d, res_i),
+            q.data_ptr(), qn.data_ptr(), table.data_ptr(), adj.data_ptr(),
+            upper_row.data_ptr(), allow.data_ptr(), cand_d.data_ptr(), cand_i.data_ptr(),
+            res_d.data_ptr(), res_i.data_ptr(), counters.data_ptr(),
+            B, ef, E, fan, d, csrc.dtype_code(table.dtype),
+            METRIC_IDS[Metric.parse(config.metric)], max_iters, level, upper_row.shape[1],
+            int(dual_pool), int(use_history), need,
+        )
+    if not dual_pool:
+        res_d, res_i = cand_d, cand_i
+    return res_d, res_i, cand_i, counters
+
+
 def beam_search_base(
     graph: HNSWGraph,
     config: HNSWConfig,
@@ -191,35 +317,29 @@ def beam_search_base(
 
     Returns (res_d [B, ef] ascending, res_i [B, ef], cand_i [B, ef],
     (iterations, distance evaluations)) with the counters as 0-d tensors.
+
+    CUDA tensors: one launch of the `beam_search` kernel, no host sync; a
+    shape whose pools do not fit a block's shared memory raises
+    `ValueError`. CPU tensors: the plain loop.
     """
+    if max_iters <= 0:
+        max_iters = 4 + (2 * ef) // expand
+    run = _beam_search_base_plain if q.device.type == "cpu" else _beam_search_base_cuda
+    return run(graph, config, q, seeds, seed_d, ef, allow, expand, max_iters, level,
+               q_norms, dual_pool, use_history)
+
+
+def _beam_search_base_plain(graph, config, q, seeds, seed_d, ef, allow, expand, max_iters,
+                            level, q_norms, dual_pool, use_history):
+    """Plain version of the `beam_search` kernel: the batch in lockstep,
+    a done mask per query, K1 and K5 once per iteration."""
     B = q.shape[0]
     dev = q.device
     m0 = config.m0 if level == 0 else config.m
     E = expand
-    if max_iters <= 0:
-        max_iters = 4 + (2 * ef) // E
     hist_len = max_iters * E if use_history else 1
-
-    # seeds may be [B] (single seed, the descent path) or [B, S]
-    if seeds.dim() == 1:
-        seeds = seeds[:, None]
-        seed_d = seed_d[:, None]
-    seeds = seeds.to(torch.int32)
-    S = seeds.shape[1]
-    cand_d = torch.full((B, ef), _INF, device=dev)
-    cand_d[:, :S] = seed_d
-    cand_i = torch.full((B, ef), -1, dtype=torch.int32, device=dev)
-    cand_i[:, :S] = seeds
+    cand_d, cand_i, res_d, res_i = _seed_pools(q, seeds, seed_d, ef, allow)
     expanded = torch.zeros((B, ef), dtype=torch.bool, device=dev)
-    seed_ok = allow[seeds.clamp(min=0).long()] & (seeds >= 0)
-    res_d = torch.full((B, ef), _INF, device=dev)
-    res_d[:, :S] = torch.where(seed_ok, seed_d, _INF)
-    res_i = torch.full((B, ef), -1, dtype=torch.int32, device=dev)
-    res_i[:, :S] = torch.where(seed_ok, seeds, -1)
-    if S > 1:
-        # pools are kept sorted ascending (the merge relies on it)
-        cand_d, cand_i = _sort_by(cand_d, cand_i)
-        res_d, res_i = _sort_by(res_d, res_i)
     hist = torch.full((B, hist_len), -1, dtype=torch.int32, device=dev)
 
     def done_mask(cand_d, expanded, res_d):

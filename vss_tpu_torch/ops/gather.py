@@ -68,6 +68,9 @@ def gather_distances(
     if q.shape != (B, d) or qn.shape != (B,):
         raise ValueError(f"gather_distances: ids {tuple(ids.shape)}, q {tuple(q.shape)}, "
                          f"q norms {tuple(qn.shape)} and table {tuple(table.shape)} disagree")
+    # `.float()` and `.to(int32)` return their argument when it already
+    # has the type, `operand` when it is contiguous and aligned: the
+    # beam's callers pay no copy here
     table = csrc.operand(table)
     ids = csrc.operand(ids.to(torch.int32))
     q = csrc.operand(q)
@@ -75,7 +78,7 @@ def gather_distances(
     out = torch.empty((B, C), dtype=torch.float32, device=table.device)
     if B and C:
         _K1.launch(
-            (table, ids, q, qn, out), ids.data_ptr(), q.data_ptr(), qn.data_ptr(),
+            (table, ids, q, qn), ids.data_ptr(), q.data_ptr(), qn.data_ptr(),
             table.data_ptr(), out.data_ptr(), B, C, d,
             csrc.dtype_code(table.dtype), METRIC_IDS[metric],
         )
@@ -101,14 +104,17 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, skip_neg: bool = False) 
     if table.device.type == "cpu":
         return _gather_rows_plain(table, ids, skip_neg)
     row = table.shape[1]
-    table = table.contiguous()
-    flat = ids.reshape(-1).to(torch.int32).contiguous()
-    out = torch.empty((flat.shape[0], row), dtype=table.dtype, device=table.device)
-    if flat.shape[0] and row:
+    if not table.is_contiguous():
+        table = table.contiguous()
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        ids = ids.to(torch.int32).contiguous()
+    n = ids.numel()
+    out = torch.empty(tuple(ids.shape) + (row,), dtype=table.dtype, device=table.device)
+    if n and row:
         if table.shape[0] == 0:
             raise ValueError("gather_rows: ids given for an empty table")
         _K5.launch(
-            (table, flat, out), flat.data_ptr(), table.data_ptr(), out.data_ptr(),
-            flat.shape[0], row * table.element_size(), int(skip_neg),
+            (table, ids), ids.data_ptr(), table.data_ptr(), out.data_ptr(),
+            n, row * table.element_size(), int(skip_neg),
         )
-    return out.reshape(tuple(ids.shape) + (row,))
+    return out
