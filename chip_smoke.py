@@ -220,14 +220,28 @@ def check_k2(dev, tape, xn, valid, q_scaled, rng):
 
     log("K2 native_segmin")
     qb = q_scaled.to(torch.bfloat16)
+    # the main-shape checks carry one query with a NaN component: its
+    # sub-minima must be NaN wherever the plain version's are
+    q_nan = qb.clone()
+    q_nan[7, 5] = float("nan")
+    clean = torch.arange(qb.shape[0], device=dev) != 7
     errs = {}
+
+    def check(label, qq, t, tn, v, metric, scale):
+        got = s.native_segmin(qq, t, tn, v, metric)
+        want = s._native_segmin_plain(qq, t, tn, v, s.Metric.parse(metric))
+        if not torch.equal(got.isnan(), want.isnan()):
+            fail(f"K2 {label}: NaN in {int((got.isnan() != want.isnan()).sum())} other places "
+                 f"than the plain version's")
+        return compare(label, got, want, scale)
+
     for metric in ("l2sq", "cosine", "ip"):
-        got = s.native_segmin(qb, tape, xn, valid, metric)
-        want = s._native_segmin_plain(qb, tape, xn, valid, s.Metric.parse(metric))
-        errs[metric] = compare(f"main int8 {tape.shape[0]} x {D} {metric}", got, want,
-                               proxy_scale(qb, tape, metric))
-        del got, want
-    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128), (torch.int8, 100)):
+        errs[metric] = check(f"main int8 {tape.shape[0]} x {D} {metric}, query 7 NaN", q_nan,
+                             tape, xn, valid, metric, proxy_scale(qb[clean], tape, metric))
+    check(f"main int8 {tape.shape[0]} x {D} l2sq, one query", qb[:1], tape, xn, valid, "l2sq",
+          proxy_scale(qb[:1], tape, "l2sq"))
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128), (torch.int8, 100),
+                     (torch.int8, 960)):
         n = 70_000 + 37  # ragged: not a multiple of 128
         if dtype == torch.int8:
             t = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(dev)
@@ -239,16 +253,28 @@ def check_k2(dev, tape, xn, valid, q_scaled, rng):
         v[:64] = False  # a whole invalid sub-segment
         qq = torch.from_numpy(rng.normal(size=(200, d)).astype(np.float32) * 5).to(dev, torch.bfloat16)
         for metric in ("l2sq", "cosine", "ip"):
-            got = s.native_segmin(qq, t, tn, v, metric)
-            want = s._native_segmin_plain(qq, t, tn, v, s.Metric.parse(metric))
-            compare(f"{str(dtype)[6:]} d={d} n={n} {metric}", got, want, proxy_scale(qq, t, metric))
+            check(f"{str(dtype)[6:]} d={d} n={n} {metric}", qq, t, tn, v, metric,
+                  proxy_scale(qq, t, metric))
     ms = cuda_ms(lambda: s.native_segmin(qb, tape, xn, valid, "l2sq"), 20)
     plain_ms = cuda_ms(lambda: s._native_segmin_plain(qb, tape, xn, valid, s.Metric.L2SQ), 5)
     nx = tape.shape[0]
+    ops = 2.0 * BATCH * nx * D
     bytes_moved = BATCH * D * 2 + nx * D + nx * 4 + nx + (nx // 32) * BATCH * 4
-    b_ms, b_by = bound(bytes_moved, 2.0 * BATCH * nx * D, "bf16")
+    b_ms, b_by = bound(bytes_moved, ops, "bf16")
+    tflops = ops / ms / 1e9
+    log(f"  main shape: kernel {ms:.4f} ms, {tflops:.1f} TFLOP/s ({ops / 1e9:.1f} GFLOP), "
+        f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.3f} ms")
+    # a batch at the GIST width, on the loop's last tape (int8, d=960: 15
+    # steps of 64 columns a block against 2 at d=128): the rate of the
+    # column loop itself
+    q960 = torch.from_numpy(rng.normal(size=(BATCH, 960)).astype(np.float32) * 5).to(
+        dev, torch.bfloat16)
+    ms960 = cuda_ms(lambda: s.native_segmin(q960, t, tn, v, "l2sq"), 20)
+    tflops960 = 2.0 * BATCH * t.shape[0] * 960 / ms960 / 1e9
+    log(f"  {BATCH} queries x int8 {t.shape[0]} x 960: kernel {ms960:.4f} ms, "
+        f"{tflops960:.1f} TFLOP/s")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                max_abs_err=errs["l2sq"])
+                max_abs_err=errs["l2sq"], tflops=tflops, ms_d960=ms960, tflops_d960=tflops960)
 
 
 def check_k3(dev, x, q, rng):
@@ -598,13 +624,20 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
     # ---- the construction call: one wave's base-level beam
     wq = q_scaled.repeat(2, 1)[:WAVE] + 0.25
     cg, ccfg, cq, cqn, cseeds, cseed_d, callow, cmi = inputs(idx, wq, cfg.ef_construction, 4, 0)
-    variant(f"construction: {WAVE} queries ef={cfg.ef_construction} E=4 single pool", idx, wq,
-            cfg.ef_construction, E=4)
+    c_iters, c_evals, c_expansions = variant(
+        f"construction: {WAVE} queries ef={cfg.ef_construction} E=4 single pool", idx, wq,
+        cfg.ef_construction, E=4)
     pool_sets = iter([sr._seed_pools(cq, cseeds, cseed_d, cfg.ef_construction, callow)
                       for _ in range(6)])
     wave_ms = cuda_ms(lambda: sr._beam_launch(cg, ccfg, cq, cqn, next(pool_sets),
                                               cfg.ef_construction, callow, 4, cmi, 0, False, True), 5)
-    log(f"  construction call: kernel {wave_ms:.4f} ms")
+    c_bytes = c_evals * row_bytes + c_expansions * cfg.m0 * 4 + WAVE * (D * 4 + 4) \
+        + 2 * WAVE * cfg.ef_construction * 8
+    cb_ms, cb_by = bound(c_bytes, 4.0 * c_evals * D, "f32")
+    c_floor_ms = c_iters * 2 * read_ns / 1e6
+    log(f"  construction call: kernel {wave_ms:.4f} ms, bound {cb_ms:.5f} ms ({cb_by}: "
+        f"{c_bytes} B; {c_iters} iterations, {c_evals} rows scored, {c_expansions} nodes "
+        f"expanded), dependent-read floor {c_floor_ms:.4f} ms")
 
     # ---- the grid at a smaller batch, on the 1M index
     qs = q_scaled[:64].contiguous()
@@ -662,7 +695,9 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 max_abs_err=err, dependent_read_ns=read_ns, dependent_read_floor_ms=floor_ms,
                 iterations=iters, evals=evals, expansions=expansions, ms_rounds=times,
-                construction_ms=wave_ms)
+                construction_ms=wave_ms, construction_bound_ms=cb_ms,
+                construction_dependent_read_floor_ms=c_floor_ms,
+                construction_counts=[c_iters, c_evals, c_expansions])
 
 
 # ----------------------------------------------------------------------
@@ -867,11 +902,32 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     }
 
 
+def k2_only(dev, vecs, queries, smi, krng) -> int:
+    """`--k2-only`: check_k2 on the corpus quantized as the int8 index
+    quantizes it, with the index's capacity of rows (the last 8 invalid),
+    and without the graph build."""
+    scale = float(np.abs(vecs).max()) / 127.0
+    cap = N + 8
+    tape = torch.zeros((cap, D), dtype=torch.int8, device=dev)
+    tape[:N] = torch.from_numpy(vecs).to(dev).div_(scale).round_().to(torch.int8)
+    xn = (tape.float() ** 2).sum(-1)
+    valid = torch.arange(cap, device=dev) < N
+    q_scaled = (torch.from_numpy(queries[:BATCH]).to(dev) / scale).contiguous()
+    result = check_k2(dev, tape, xn, valid, q_scaled, krng)
+    log(smi)
+    log(json.dumps({"native_segmin": result}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-dir", default=None,
                     help="where the profiler traces go (default: vss_tpu_torch/_build/traces)")
+    ap.add_argument("--k2-only", action="store_true",
+                    help="build K2 alone and run its checks and timing (check_k2) on a "
+                         "synthetic 1,000,008 x 128 int8 tape, without the index build; "
+                         "prints K2's entry and no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -893,8 +949,9 @@ def main() -> int:
         fail("TF32 is on; the exact paths need full f32 products")
 
     # ---- phase 2: build
-    log(f"build: {csrc.build():.2f} s for {sorted(csrc.SOURCES)}")
-    for lib in sorted(csrc.SOURCES):
+    libs = ["scan"] if args.k2_only else sorted(csrc.SOURCES)
+    log(f"build: {csrc.build(libs):.2f} s for {libs}")
+    for lib in libs:
         path = os.path.join(csrc.BUILD_DIR, f"{lib}.log")
         if os.path.exists(path):
             for line in open(path).read().splitlines():
@@ -906,6 +963,8 @@ def main() -> int:
     t0 = time.perf_counter()
     vecs, queries, centers = sift_like(rng, N, NQ, D)
     log(f"data: {N} x {D} corpus, {NQ} queries in {time.perf_counter() - t0:.1f} s")
+    if args.k2_only:
+        return k2_only(dev, vecs, queries, smi, np.random.default_rng(args.seed + 1))
 
     # ---- build the index (host threads) before the kernel checks, which
     # use its tapes

@@ -1,13 +1,15 @@
 // A stand-in for the CUDA toolkit's headers that lets g++ compile the
 // port's kernels (`vss_tpu_torch/csrc/*.cu`) and run them on the CPU, so
 // that a kernel's control flow and index arithmetic can be tested where
-// there is no nvcc and no card (`tests/test_torch_beam_emulated.py`).
+// there is no nvcc and no card (`tests/test_torch_beam_emulated.py`,
+// `tests/test_torch_scan_emulated.py`, built by `tests/emulation.py`).
 //
 // A block's threads are cooperative fibers (ucontext) run in turn by
 // `emu_launch`; a fiber runs until it reaches a barrier, then the next one
-// does. Every barrier, shuffle, ballot and warp reduction is a switch
-// point, so the emulation is only valid for kernels in which all threads
-// of a block reach the same sequence of such calls (uniform control flow
+// does. Every barrier, shuffle, ballot, warp reduction, `ldmatrix` and
+// `mma` (the stand-ins for csrc/mma.cuh) is a switch point, so the
+// emulation is only valid for kernels in which all threads of a block
+// reach the same sequence of such calls (uniform control flow
 // around them): the launcher counts a divergence (`emu_divergences`) and
 // gives the block up when some fibers end while others wait. Blocks run
 // one after another. It shows what a kernel computes, never how fast, and
@@ -31,7 +33,7 @@ using std::isnan;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __align__(x)
 #define CUDART_INF_F (__builtin_inff())
@@ -50,6 +52,9 @@ struct uint2 {
 struct float4 {
   float x, y, z, w;
 };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return {x, y, z, w};
+}
 struct __nv_bfloat16 {
   uint16_t v;
 };
@@ -78,6 +83,8 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
+// the card's rsqrtf is within 2 ulp of this: tests compare with a tolerance
+inline float rsqrtf(float a) { return 1.0f / sqrtf(a); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
 typedef void* cudaStream_t;
@@ -102,10 +109,13 @@ struct Emu {
   int threads = 0;
   std::vector<char> ended;
   std::vector<uint32_t> slots;  // one value per thread, for warp exchanges
+  std::vector<uint32_t> frags;  // kFragWords per thread, for ldmatrix / mma
+  std::vector<const void*> rows;  // one address per thread, for ldmatrix
   std::vector<char*> stacks;
   std::function<void()> body;
   unsigned char* smem = nullptr;  // the block's dynamic shared memory
 };
+constexpr int kFragWords = 6;  // an mma's A (4 words) and B (2 words)
 inline Emu emu;
 inline int emu_divergences = 0;
 
@@ -166,6 +176,72 @@ inline V atomicMax(V* p, V v) {
   return old;
 }
 
+// ---- warp-level matrix instructions, the two functions of csrc/mma.cuh,
+// written from the PTX ISA's tables (not from any kernel). A lane's
+// 32-bit register holds two b16 values, the lower-indexed one in its low
+// half. lane = 4 g + t.
+
+inline uint16_t emu_b16(uint32_t word, int half) {
+  return static_cast<uint16_t>(half ? word >> 16 : word & 0xffffu);
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.shared.b16: lanes 8i..8i+7 give the
+// addresses of rows 0..7 of matrix i; each lane then receives, in
+// register i, row g of matrix i, elements 2t and 2t+1.
+inline void ldmatrix_x4(uint32_t r[4], const void* row) {
+  const int self = emu.current;
+  const int first = self & ~31;
+  const int g = (self & 31) >> 2, t = self & 3;
+  emu.rows[self] = row;
+  emu_switch();
+  for (int i = 0; i < 4; ++i) {
+    const unsigned char* src = static_cast<const unsigned char*>(emu.rows[first + 8 * i + g]);
+    memcpy(&r[i], src + 4 * t, 4);
+  }
+  emu_switch();
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d = a * b + c:
+//   A element i (i = 0..7, register i/2, half i%2) sits at
+//     row g for i in {0, 1, 4, 5}, else g + 8; column 2t + (i & 1) + (i >= 4 ? 8 : 0);
+//   B element i (i = 0..3, register i/2, half i%2) sits at
+//     row (k) 2t + (i & 1) + (i >= 2 ? 8 : 0), column (n) g;
+//   C / D element i (i = 0..3) sits at row g + (i >= 2 ? 8 : 0),
+//     column 2t + (i & 1).
+// The products of bf16 values are exact; each output is summed in double
+// and rounded to f32 once (the card's adder tree may round differently,
+// which integer-valued test data cannot show).
+inline void mma_bf16_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  const int self = emu.current;
+  const int first = self & ~31;
+  uint32_t* mine = &emu.frags[static_cast<size_t>(self) * kFragWords];
+  memcpy(mine, a, 16);
+  memcpy(mine + 4, b, 8);
+  emu_switch();
+  float A[16][16], B[16][8];
+  for (int lane = 0; lane < 32; ++lane) {
+    const uint32_t* f = &emu.frags[static_cast<size_t>(first + lane) * kFragWords];
+    const int g = lane >> 2, t = lane & 3;
+    for (int i = 0; i < 8; ++i) {
+      const int row = (i < 2 || (i >= 4 && i < 6)) ? g : g + 8;
+      const int col = 2 * t + (i & 1) + (i >= 4 ? 8 : 0);
+      A[row][col] = __bfloat162float({emu_b16(f[i / 2], i & 1)});
+    }
+    for (int i = 0; i < 4; ++i) {
+      const int k = 2 * t + (i & 1) + (i >= 2 ? 8 : 0);
+      B[k][g] = __bfloat162float({emu_b16(f[4 + i / 2], i & 1)});
+    }
+  }
+  const int g = (self & 31) >> 2, t = self & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >= 2 ? 8 : 0), col = 2 * t + (i & 1);
+    double s = c[i];
+    for (int k = 0; k < 16; ++k) s += static_cast<double>(A[row][k]) * B[k][col];
+    c[i] = static_cast<float>(s);
+  }
+  emu_switch();
+}
+
 static void emu_fiber_main() {
   emu.body();
   emu.ended[emu.current] = 1;
@@ -180,6 +256,8 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
   emu.threads = block;
   emu.fibers.resize(block);
   emu.slots.assign(block + 32, 0);
+  emu.frags.assign((block + 32) * kFragWords, 0);
+  emu.rows.assign(block + 32, nullptr);
   while (static_cast<int>(emu.stacks.size()) < block)
     emu.stacks.push_back(static_cast<char*>(malloc(stack_bytes)));
   const size_t smem_bytes = (smem + 127) / 128 * 128 + 128;

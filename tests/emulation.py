@@ -1,0 +1,86 @@
+"""Build the port's CUDA sources with g++ against `tests/cuda_emulation.h`.
+
+The sources are taken as they are, apart from three textual changes: the
+`<<<...>>>` launches become calls of `emu_launch`, the dynamic
+shared-memory declarations become pointers to the emulated block's
+shared memory, and `csrc/mma.cuh` (the PTX of `ldmatrix` and `mma.sync`)
+is replaced by the emulation's stand-ins for its two functions.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+from vss_tpu_torch import csrc
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.dirname(os.path.abspath(csrc.__file__))
+
+_MMA_STUB = """#pragma once
+// the emulation's ldmatrix_x4 and mma_bf16_16816 (tests/cuda_emulation.h)
+#include "cuda_emulation.h"
+namespace vss {
+using ::ldmatrix_x4;
+using ::mma_bf16_16816;
+}  // namespace vss
+"""
+
+
+def for_gpp(text: str) -> str:
+    text = text.replace("extern __shared__ __align__(16) unsigned char smem[];",
+                        "unsigned char* smem = emu.smem;")
+    text = text.replace("extern __shared__ float qs[];",
+                        "float* qs = reinterpret_cast<float*>(emu.smem);")
+
+    def launch(m):
+        grid, block, smem = (a.strip() for a in m.group(2).replace("\n", " ").split(",")[:3])
+        return f"emu_launch({m.group(1)}, {grid}, {block}, {smem}, "
+
+    return re.sub(r"([\w:]+(?:<\w+>)?)<<<(.*?)>>>\(", launch, text, flags=re.S)
+
+
+def gpp(src, out) -> ctypes.CDLL:
+    """Compile one C++ source that includes the emulation into a shared
+    library and load it. Each f32 operation rounds on its own."""
+    work = os.path.dirname(str(src))
+    subprocess.run(
+        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-I", work,
+         "-x", "c++", str(src), "-o", str(out)],
+        check=True, capture_output=True, text=True, timeout=600)
+    return ctypes.CDLL(str(out))
+
+
+def setup(work) -> None:
+    """Fill the directory `work` with the emulation header, stand-ins for
+    the CUDA headers, and the port's headers as g++ takes them."""
+    for header in ("cuda_bf16.h", "cuda_runtime.h", "math_constants.h"):
+        (work / header).write_text('#include "cuda_emulation.h"\n')
+    shutil.copy(os.path.join(TESTS, "cuda_emulation.h"), work / "cuda_emulation.h")
+    for name in csrc._HEADERS:
+        with open(os.path.join(CSRC, name)) as f:
+            (work / name).write_text(_MMA_STUB if name == "mma.cuh" else for_gpp(f.read()))
+
+
+def build(work, libraries) -> dict[str, ctypes.CDLL]:
+    """lib<name>.so for each name, from csrc/<name>.cu, in `work` (after
+    `setup`). Each library also exports `emu_divergence_count`."""
+    libs = {}
+    for name in libraries:
+        with open(os.path.join(CSRC, f"{name}.cu")) as f:
+            text = for_gpp(f.read())
+        text += '\nextern "C" int emu_divergence_count() { return emu_divergences; }\n'
+        (work / f"{name}.cu").write_text(text)
+        libs[name] = gpp(work / f"{name}.cu", work / f"lib{name}.so")
+    return libs
+
+
+def entry(lib, kernel):
+    """The C entry point of `kernel` (a `csrc.Kernel`) in an emulated
+    library, with its argument types and the stream last."""
+    fn = getattr(lib, kernel.symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = kernel.argtypes + [csrc.PTR]
+    return fn

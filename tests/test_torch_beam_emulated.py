@@ -6,9 +6,9 @@ themselves are held against their plain versions only on the card
 (`chip_smoke.py`). What can run here is their C++: `tests/cuda_emulation.h`
 stands in for the CUDA headers and runs a block's threads as cooperative
 fibers that switch at every barrier and warp exchange. The sources are
-taken as they are, apart from two textual changes made below: the
-`<<<...>>>` launches become calls and the dynamic shared-memory
-declarations become pointers.
+taken as they are, apart from the textual changes that
+`tests/emulation.py` makes: the `<<<...>>>` launches become calls and the
+dynamic shared-memory declarations become pointers.
 
 The emulation shows what a kernel computes (index arithmetic, the merge
 network, tie and NaN rules, the shared-memory layout), never how fast, and
@@ -16,35 +16,16 @@ it cannot show a missing barrier. Inputs are integer-valued, so every f32
 sum is exact in any order and the kernel must equal the plain loop exactly,
 as it must on the card against the loop through K1 and K5.
 """
-import ctypes
-import os
-import re
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+import emulation
 import vss_tpu_torch.index.search as tsearch
 from vss_tpu_torch import HNSWConfig, HNSWIndex, csrc
 from vss_tpu_torch.ops import gather as tgather
-
-TESTS = os.path.dirname(os.path.abspath(__file__))
-CSRC = os.path.dirname(os.path.abspath(csrc.__file__))
-
-
-def _for_gpp(text: str) -> str:
-    text = text.replace("extern __shared__ __align__(16) unsigned char smem[];",
-                        "unsigned char* smem = emu.smem;")
-    text = text.replace("extern __shared__ float qs[];",
-                        "float* qs = reinterpret_cast<float*>(emu.smem);")
-
-    def launch(m):
-        grid, block, smem = (a.strip() for a in m.group(2).replace("\n", " ").split(",")[:3])
-        return f"emu_launch({m.group(1)}, {grid}, {block}, {smem}, "
-
-    return re.sub(r"([\w:]+(?:<\w+>)?)<<<(.*?)>>>\(", launch, text, flags=re.S)
 
 
 @pytest.fixture(scope="module")
@@ -53,31 +34,8 @@ def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     work = tmp_path_factory.mktemp("cuda_emulation")
-    for header in ("cuda_bf16.h", "cuda_runtime.h", "math_constants.h"):
-        (work / header).write_text('#include "cuda_emulation.h"\n')
-    shutil.copy(os.path.join(TESTS, "cuda_emulation.h"), work / "cuda_emulation.h")
-    libs = {}
-    for name in ("common.cuh", "gather.cuh", "gather.cu", "beam.cu"):
-        with open(os.path.join(CSRC, name)) as f:
-            text = _for_gpp(f.read())
-        if name.endswith(".cu"):
-            text += '\nextern "C" int emu_divergence_count() { return emu_divergences; }\n'
-        (work / name).write_text(text)
-    for name in ("gather", "beam"):
-        out = work / f"lib{name}.so"
-        subprocess.run(
-            ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(work),
-             "-x", "c++", str(work / f"{name}.cu"), "-o", str(out)],
-            check=True, capture_output=True, text=True, timeout=600)
-        libs[name] = ctypes.CDLL(str(out))
-    return libs
-
-
-def _entry(lib, kernel):
-    fn = getattr(lib, kernel.symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = kernel.argtypes + [csrc.PTR]
-    return fn
+    emulation.setup(work)
+    return emulation.build(work, ("gather", "beam"))
 
 
 @pytest.fixture(scope="module")
@@ -135,7 +93,7 @@ def test_emulated_beam_kernel_equals_plain_loop(emulated, world, monkeypatch, st
     mi = 4 + (2 * ef) // E
     want = tsearch._beam_search_base_plain(g, cfg, q, seeds, seed_d, ef, allow, E, mi, level,
                                            qn, dual, hist)
-    fn = _entry(emulated["beam"], tsearch._BEAM)
+    fn = emulation.entry(emulated["beam"], tsearch._BEAM)
     launched = []
 
     def launch(operands, *args):
@@ -160,7 +118,7 @@ def test_emulated_beam_refuses_another_shared_memory_count(emulated, world, monk
     g, cfg = idx.graph, idx.config
     qn = (q * q).sum(-1)
     seed_d = tgather.gather_distances(g.vectors, seeds0, q, cfg.metric, qn)
-    fn = _entry(emulated["beam"], tsearch._BEAM)
+    fn = emulation.entry(emulated["beam"], tsearch._BEAM)
     codes = []
     monkeypatch.setattr(tsearch._BEAM, "launch", lambda operands, *args: codes.append(fn(*args, None)))
     right = tsearch.beam_smem_bytes
@@ -182,7 +140,7 @@ def test_emulated_k1_equals_plain(emulated, storage, d, metric):
     qn = (q * q).sum(-1)
     want = tgather._gather_distances_plain(table, ids, q, tgather.Metric.parse(metric), qn)
     out = torch.empty((5, 21), dtype=torch.float32)
-    fn = _entry(emulated["gather"], tgather._K1)
+    fn = emulation.entry(emulated["gather"], tgather._K1)
     assert fn(ids.data_ptr(), q.data_ptr(), qn.data_ptr(), table.data_ptr(), out.data_ptr(),
               5, 21, d, csrc.dtype_code(table.dtype), tgather.METRIC_IDS[
                   tgather.Metric.parse(metric)], None) == 0
@@ -199,7 +157,7 @@ def test_emulated_k5_equals_plain(emulated, dtype, row, skip_neg):
     ids = torch.from_numpy(rng.integers(-2, 200, (37,)).astype(np.int32))
     want = tgather._gather_rows_plain(table, ids, skip_neg)
     out = torch.empty((37, row), dtype=dtype)
-    fn = _entry(emulated["gather"], tgather._K5)
+    fn = emulation.entry(emulated["gather"], tgather._K5)
     assert fn(ids.data_ptr(), table.data_ptr(), out.data_ptr(), 37, row * table.element_size(),
               int(skip_neg), None) == 0
     np.testing.assert_array_equal(out.numpy(), want.numpy())

@@ -36,7 +36,7 @@ SOURCES = {
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }
-_HEADERS = ("common.cuh", "gather.cuh")
+_HEADERS = ("common.cuh", "gather.cuh", "mma.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

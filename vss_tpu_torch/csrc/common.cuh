@@ -6,8 +6,8 @@
 //   the compiler cannot contract them into an FMA the plain PyTorch
 //   version does not do.
 // * 16-element row loaders that decode int8 / bf16 / f32 to f32 (exact).
-// * `tile_dots`: the SIMT f32 tile loop that K2 (scan.cu), K3 (topk.cu)
-//   and K4 (distance.cu) share. A block of 256 threads scores a tile of
+// * `tile_dots`: the SIMT f32 tile loop that K3 (topk.cu) and K4
+//   (distance.cu) share. A block of 256 threads scores a tile of
 //   128 tape rows against 128 queries, staging 16 columns of both in
 //   shared memory per step; each thread keeps an 8x8 block of f32
 //   accumulators in registers (rows r*4+{0..3} and 64+r*4+{0..3},
@@ -16,11 +16,12 @@
 //
 // Bound on the H100: at the main path's shapes (128 columns, 512
 // queries, 10^6 rows) the tile loop does 2*512*128 multiply-adds per
-// tape row against 128 B (int8) to 512 B (f32) read, so it is bound by
-// operations, not bytes. The SIMT loop runs on the f32 pipes (67 TFLOP/s
-// peak), far under the tensor cores; it is kept because it is exact for
-// the f32 oracle (TF32 is not) and simple. Moving K2 to bf16 `wgmma` is
-// the obvious next step.
+// tape row against 512 B (f32) read, so it is bound by operations, not
+// bytes. The SIMT loop runs on the f32 pipes (67 TFLOP/s peak), far under
+// the tensor cores; it is kept because it is exact for the f32 oracle
+// (TF32 is not) and simple. K2, whose products take bf16 inputs, runs
+// them on the tensor cores instead (scan.cu, mma.cuh); `tile_origin`, the
+// tile sizes and the loaders are shared with it.
 #pragma once
 
 #include <cuda_bf16.h>

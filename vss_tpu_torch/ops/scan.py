@@ -87,6 +87,12 @@ def native_segmin(q, tape, x_norms, valid, metric) -> torch.Tensor:
     metric = Metric.parse(metric)
     if tape.device.type == "cpu":
         return _native_segmin_plain(q, tape, x_norms, valid, metric)
+    return _native_segmin_launch(q, tape, x_norms, valid, metric)
+
+
+def _native_segmin_launch(q, tape, x_norms, valid, metric: Metric) -> torch.Tensor:
+    """K2's launch: checks the shapes, pads the width to a multiple of 16
+    and launches on the device of `tape`."""
     nx = tape.shape[0]
     if q.shape[1] != tape.shape[1] or x_norms.shape != (nx,) or valid.shape != (nx,):
         raise ValueError(f"native_segmin: q {tuple(q.shape)}, tape {tuple(tape.shape)}, "
