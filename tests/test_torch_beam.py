@@ -10,8 +10,9 @@ can run without a card.
     within 1e-5 relative.
 (c) A scalar model of the kernel's merge, the compare-exchange pairs in the
     order `beam.cu` runs them, against `_merge_sorted`.
-(d) The wrapper: CPU tensors take the plain loop, a shape over the
-    shared-memory limit raises before any launch.
+(d) The wrapper: CPU tensors take the plain loop; pools over the
+    shared-memory limit launch in the wide layout, and only a query too
+    wide for shared memory raises before any launch.
 
 Inputs come from a numpy seed. The graph's vectors are integer-valued in
 (a) and (b), so every f32 sum is exact in both packages and no near-tie can
@@ -194,22 +195,43 @@ def test_cpu_tensors_take_the_plain_loop(world, monkeypatch):
 
 
 def test_shape_over_the_shared_memory_limit_raises_before_any_launch(world, monkeypatch):
+    """Pools past a block's shared memory, and more neighbour slots than a
+    block has threads, launch in the wide layout with a workspace of B
+    queries' pools; only a query too wide for shared memory by itself
+    raises, before any launch."""
     g, cfg, q, seeds, seed_d, allow = _torch_inputs(world, 0)
     launched = []
     monkeypatch.setattr(tsearch._BEAM, "launch", lambda *a: launched.append(a))
     pools = tsearch._seed_pools(q, seeds, seed_d, 16, allow)
     qn = (q * q).sum(-1)
-    # a shape that fits goes through to the launch
+    B = q.shape[0]
+
+    def layout(args):  # (wide flag, smem bytes, pool bytes, workspace bytes)
+        return args[-4:]
+
+    # a shape that fits goes through to the launch in the shared layout
     tsearch._beam_launch(g, cfg, q, qn, pools, 16, allow, 1, 36, 0, True, True)
     assert len(launched) == 1
+    assert layout(launched[0]) == (0, tsearch.beam_smem_bytes(16, 1, 16, D, 36, True, True), 0, 0)
     ef = 20_000
-    with pytest.raises(ValueError, match=r"ef=20000, E=1, m0=16 need \d+ bytes"):
-        tsearch._beam_launch(g, cfg, q, qn, tsearch._seed_pools(q, seeds, seed_d, ef, allow),
-                             ef, allow, 1, 4 + 2 * ef, 0, True, True)
-    wide = dataclasses.replace(cfg, m0=512)
-    with pytest.raises(ValueError, match="one thread per neighbour slot"):
-        tsearch._beam_launch(g, wide, q, qn, pools, 16, allow, 4, 12, 0, True, True)
-    assert len(launched) == 1
+    tsearch._beam_launch(g, cfg, q, qn, tsearch._seed_pools(q, seeds, seed_d, ef, allow),
+                         ef, allow, 1, 4 + 2 * ef, 0, True, True)
+    sizes = (ef, 1, 16, D, 4 + 2 * ef, True, True)
+    pool = tsearch.beam_pool_bytes(*sizes)
+    assert tsearch.beam_smem_bytes(*sizes) > tsearch._BEAM_MAX_SMEM
+    assert layout(launched[1]) == (1, tsearch.beam_smem_bytes(*sizes, wide=True), pool, B * pool)
+    assert launched[1][12] is not None  # the workspace pointer
+    # E * fan-out 2,048 > 256 threads: the threads stride over the slots
+    fan512 = dataclasses.replace(cfg, m0=512)
+    g512 = dataclasses.replace(g, adj0=torch.full((g.capacity, 512), -1, dtype=torch.int32))
+    tsearch._beam_launch(g512, fan512, q, qn, pools, 16, allow, 4, 12, 0, True, True)
+    assert len(launched) == 3 and layout(launched[2])[0] == 0
+    huge = dataclasses.replace(cfg, dims=60_000)
+    gh = dataclasses.replace(g, vectors=torch.zeros((g.capacity, 60_000)))
+    with pytest.raises(ValueError, match=r"d=60000, E=1, m0=16 need \d+ bytes"):
+        tsearch._beam_launch(gh, huge, torch.zeros((B, 60_000)), qn, pools, 16, allow, 1, 36,
+                             0, True, True)
+    assert len(launched) == 3
 
 
 @pytest.mark.parametrize("ef,E,fan,d,iters,dual,hist,want", [

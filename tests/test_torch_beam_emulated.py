@@ -1,5 +1,8 @@
 """The CUDA sources of the gather kernels and of `beam_search`, compiled
-with g++ and run on the CPU, against their plain versions.
+with g++ and run on the CPU, against their plain versions: `beam_search`
+in both of its layouts (pools in shared memory, and pools in a workspace
+in device memory for ef past a block's shared memory), and with more
+neighbour slots a step than a block has threads.
 
 There is no nvcc and no card where these tests run, so the kernels
 themselves are held against their plain versions only on the card
@@ -78,17 +81,16 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("storage,metric,dual,hist,E,level,ef", CASES)
-def test_emulated_beam_kernel_equals_plain_loop(emulated, world, monkeypatch, storage, metric,
-                                                dual, hist, E, level, ef):
-    idx, q, allow, seeds0, seeds1 = world
-    cfg = HNSWConfig(dims=idx.config.dims, m=idx.config.m, metric=metric, storage_dtype=storage)
-    g = idx.graph.clone()
-    g.vectors = _tape(g, storage)
-    seeds = seeds0 if level == 0 else seeds1
+def _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds, ef, E, level, dual, hist,
+                  wide=False, want_wide=None):
+    """The emulated kernel through `_beam_launch`, held equal to the plain
+    loop; `want_wide` is the layout the wrapper must pick. In the wide
+    layout each query's candidate ids must end in its own slice of the
+    workspace: the emulation runs blocks one after another, so slices that
+    overlapped would go unseen otherwise."""
     qn = (q * q).sum(-1)
     seed_d = tgather.gather_distances(
-        g.vectors, seeds if seeds.dim() == 2 else seeds[:, None], q, metric, qn
+        g.vectors, seeds if seeds.dim() == 2 else seeds[:, None], q, cfg.metric, qn
     ).reshape(seeds.shape)
     mi = 4 + (2 * ef) // E
     want = tsearch._beam_search_base_plain(g, cfg, q, seeds, seed_d, ef, allow, E, mi, level,
@@ -98,17 +100,115 @@ def test_emulated_beam_kernel_equals_plain_loop(emulated, world, monkeypatch, st
 
     def launch(operands, *args):
         assert fn(*args, None) == 0
-        launched.append(args)
+        launched.append((operands, args))
 
     monkeypatch.setattr(tsearch._BEAM, "launch", launch)
     pools = tsearch._seed_pools(q, seeds, seed_d, ef, allow)
     res_d, res_i, cand_i, counters = tsearch._beam_launch(
-        g, cfg, q, qn, pools, ef, allow, E, mi, level, dual, hist)
+        g, cfg, q, qn, pools, ef, allow, E, mi, level, dual, hist, _wide=wide)
     assert len(launched) == 1 and emulated["beam"].emu_divergence_count() == 0
+    operands, args = launched[0]
+    if want_wide is not None:
+        assert args[-4] == int(want_wide)  # the layout the wrapper chose
+    if args[-4]:
+        # the slice of query b: ckey [P] f32, then cid [P] i32, ...
+        P = 1 << (ef + E * (cfg.m0 if level == 0 else cfg.m) - 1).bit_length()
+        slices = operands[-1].reshape(q.shape[0], -1)
+        cids = slices[:, 4 * P:4 * P + 4 * ef].contiguous().view(torch.int32)
+        np.testing.assert_array_equal(cids.numpy(), cand_i.numpy())
     np.testing.assert_array_equal(res_d.numpy(), want[0].numpy())  # NaN equals NaN here
     np.testing.assert_array_equal(res_i.numpy(), want[1].numpy())
     np.testing.assert_array_equal(cand_i.numpy(), want[2].numpy())
     assert (int(counters[0]), int(counters[1])) == (int(want[3][0]), int(want[3][1]))
+
+
+@pytest.mark.parametrize("storage,metric,dual,hist,E,level,ef", CASES)
+def test_emulated_beam_kernel_equals_plain_loop(emulated, world, monkeypatch, storage, metric,
+                                                dual, hist, E, level, ef):
+    idx, q, allow, seeds0, seeds1 = world
+    cfg = HNSWConfig(dims=idx.config.dims, m=idx.config.m, metric=metric, storage_dtype=storage)
+    g = idx.graph.clone()
+    g.vectors = _tape(g, storage)
+    _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds0 if level == 0 else seeds1,
+                  ef, E, level, dual, hist, want_wide=False)
+
+
+@pytest.mark.parametrize("storage,metric,dual,hist,E,level,ef",
+                         [CASES[1], CASES[3], CASES[4], CASES[9]])
+def test_emulated_beam_wide_layout_forced_equals_plain_loop(emulated, world, monkeypatch, storage,
+                                                            metric, dual, hist, E, level, ef):
+    """The wide layout (pools in the workspace), forced at shapes the
+    shared layout also serves, gives what the plain loop gives."""
+    idx, q, allow, seeds0, seeds1 = world
+    cfg = HNSWConfig(dims=idx.config.dims, m=idx.config.m, metric=metric, storage_dtype=storage)
+    g = idx.graph.clone()
+    g.vectors = _tape(g, storage)
+    _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds0 if level == 0 else seeds1,
+                  ef, E, level, dual, hist, wide=True, want_wide=True)
+
+
+@pytest.fixture(scope="module")
+def small_world():
+    """Two small integer-valued indexes: m=16 over 300 rows for pools far
+    wider than the graph, m=64 (m0=128) over 500 rows for more neighbour
+    slots a pick than a block has threads."""
+    rng = np.random.default_rng(8)
+    d = 16
+    out = []
+    for n, m in ((300, 16), (500, 64)):
+        vecs = rng.integers(-6, 7, (n, d)).astype(np.float32)
+        idx = HNSWIndex.build(vecs, HNSWConfig(dims=d, m=m), method="native", device="cpu")
+        q = torch.from_numpy(rng.integers(-6, 7, (2, d)).astype(np.float32))
+        seeds = torch.from_numpy(rng.integers(0, n, (2, 2)).astype(np.int32))
+        allow = idx.graph.valid & torch.from_numpy(rng.random(idx.capacity) > 0.2)
+        out.append((idx, q, seeds, allow))
+    return out
+
+
+@pytest.mark.parametrize("dual", [True, False])
+def test_emulated_beam_ef_8161_takes_the_wide_layout(emulated, small_world, monkeypatch, dual):
+    """ef = 8,161 at m0 = 32 doubles the merge buffer to 16,384 slots: two
+    pools then pass a block's 227 KB and the wrapper takes the wide
+    layout by itself; one pool still fits."""
+    idx, q, seeds, allow = small_world[0]
+    g, cfg = idx.graph, idx.config
+    ef = 8161
+    wide = tsearch.beam_smem_bytes(ef, 1, cfg.m0, cfg.dims, 4 + 2 * ef, dual, True) \
+        > tsearch._BEAM_MAX_SMEM
+    assert wide == dual
+    _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds, ef, 1, 0, dual, True,
+                  want_wide=wide)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_emulated_beam_more_slots_than_threads(emulated, small_world, monkeypatch, wide):
+    """E * m0 = 9 * 128 = 1,152 neighbour slots a step, over the 256
+    threads of a block: each thread strides over its slots."""
+    idx, q, seeds, allow = small_world[1]
+    g, cfg = idx.graph, idx.config
+    _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds, 48, 9, 0, True, True,
+                  wide=wide, want_wide=wide)
+
+
+@pytest.mark.parametrize("ef,E,fan,d,dual,hist", [
+    (64, 1, 32, 128, False, True), (64, 1, 32, 128, True, True), (16, 1, 32, 100, False, True),
+    (128, 4, 32, 128, False, False), (8161, 1, 32, 128, True, True), (10485, 1, 32, 128, False, True),
+    (24, 2, 5, 19, True, True), (48, 9, 128, 16, True, False), (16384, 1, 32, 960, True, True)])
+def test_emulated_beam_layout_bytes_equal_the_wrappers(emulated, ef, E, fan, d, dual, hist):
+    """`beam_smem_bytes` and `beam_pool_bytes` count what the layout of
+    `csrc/beam.cu` (`vss_beam_layout_bytes`) counts, in both layouts."""
+    import ctypes
+
+    fn = emulated["beam"].vss_beam_layout_bytes
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int32] * 8 + [ctypes.c_void_p]
+    mi = 4 + (2 * ef) // E
+    out = (ctypes.c_int64 * 2)()
+    for wide in (0, 1):
+        fn(ef, E, fan, d, mi, int(dual), int(hist), wide, ctypes.addressof(out))
+        want_pool = tsearch.beam_pool_bytes(ef, E, fan, d, mi, dual, hist) if wide else 0
+        assert (out[0], out[1]) == (
+            tsearch.beam_smem_bytes(ef, E, fan, d, mi, dual, hist, wide=bool(wide)), want_pool)
 
 
 def test_emulated_beam_refuses_another_shared_memory_count(emulated, world, monkeypatch):
@@ -123,7 +223,7 @@ def test_emulated_beam_refuses_another_shared_memory_count(emulated, world, monk
     monkeypatch.setattr(tsearch._BEAM, "launch", lambda operands, *args: codes.append(fn(*args, None)))
     right = tsearch.beam_smem_bytes
     for off in (0, 16):
-        monkeypatch.setattr(tsearch, "beam_smem_bytes", lambda *a: right(*a) + off)
+        monkeypatch.setattr(tsearch, "beam_smem_bytes", lambda *a, **k: right(*a, **k) + off)
         tsearch._beam_launch(g, cfg, q, qn, tsearch._seed_pools(q, seeds0, seed_d, 16, allow),
                              16, allow, 1, 36, 0, True, True)
     assert codes[0] == 0 and codes[1] != 0

@@ -126,16 +126,20 @@ def test_entry_points_need_a_gpu_or_device_cpu():
         scan_topk(x, x, 1, "l2sq")
 
 
-def test_build_methods_not_ported_raise():
+def test_build_methods_exact_and_auto_build_above_8192_rows():
     vecs = np.zeros((16, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        HNSWIndex.build(vecs, TConfig(dims=8), method="exact", device="cpu")
-    with pytest.raises(NotImplementedError):
-        HNSWIndex.build(np.zeros((9000, 8), np.float32), TConfig(dims=8), device="cpu")
     with pytest.raises(ValueError, match="unknown build method"):
         HNSWIndex.build(vecs, TConfig(dims=8), method="bulk", device="cpu")
     # the wave builder is ported
     assert HNSWIndex.build(vecs, TConfig(dims=8), method="wave", device="cpu").count == 16
+    # 'auto' takes the bulk builder above 8,192 rows, and 'exact' is it
+    big = np.random.default_rng(5).normal(size=(9000, 8)).astype(np.float32)
+    for method in ("exact", "auto"):
+        idx = HNSWIndex.build(big, TConfig(dims=8), method=method, device="cpu")
+        assert idx.count == 9000 and int(idx.graph.count) == 9000
+        assert idx.build_stats["mode"] == "exact"
+        _, rows = idx.search(big[:8], 1, ef=32)
+        assert (rows[:, 0].numpy() == np.arange(8)).all()
 
 
 def test_convert_carries_write_path_state(pair):

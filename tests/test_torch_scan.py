@@ -144,3 +144,36 @@ def test_k2_plain_matches_pallas_kernel(interpret_pallas, metric, dtype):
     ))
     got_ids = tscan._select_subsegments(got, keep).numpy()
     np.testing.assert_array_equal(got_ids, want_ids)
+
+
+def _recall(got, truth):
+    return float(np.mean([len(set(g) & set(t)) / len(t) for g, t in zip(got, truth)]))
+
+
+@pytest.mark.parametrize("n,k,keep,diverges", [
+    (3000, 128, None, True), (4096, 100, 200, True), (8192, 100, 200, True),
+    (20_000, 100, 200, False)])
+def test_scan_topk_keep_cap_diverges_from_jax_on_small_tapes(interpret_pallas, n, k, keep,
+                                                              diverges):
+    """The port caps `keep` at the tape's 32-row subs, the reference at its
+    128-row supers (`vss_tpu/ops/scan.py:401-402`), which breaks the bound
+    of at most k segments holding the true top-k. On small tapes at large k
+    the port then equals the exact oracle and the reference falls short of
+    it; at 20,000 rows the two caps do not bind and the outputs agree."""
+    from vss_tpu_torch.ops.topk import bruteforce_topk
+
+    rng = np.random.default_rng(3)
+    d = 32
+    xf = rng.integers(-127, 128, (n, d)).astype(np.float32)
+    q = (rng.normal(size=(4, d)) * 20).astype(np.float32)
+    _, ji = jscan.scan_topk(jnp.asarray(q), jnp.asarray(xf, jnp.int8), k, "l2sq",
+                            rerank_tape=jnp.asarray(xf), keep=keep)
+    _, ti = tscan.scan_topk(torch.from_numpy(q), torch.from_numpy(xf).to(torch.int8), k, "l2sq",
+                            rerank_tape=torch.from_numpy(xf), keep=keep, device="cpu")
+    _, oi = bruteforce_topk(torch.from_numpy(q), torch.from_numpy(xf), k, "l2sq", device="cpu")
+    ti, ji, oi = ti.numpy(), np.asarray(ji), oi.numpy()
+    assert _recall(ti, oi) == 1.0
+    if diverges:
+        assert _recall(ji, oi) < 0.9
+    else:
+        np.testing.assert_array_equal(ti, ji)

@@ -27,9 +27,21 @@
 //     the SMs overlap one query's round trips with the others' work.
 //     Above 48 KB the kernel asks for more dynamic shared memory, up to
 //     the 227 KB a block may have;
-//   * one thread per neighbour slot (E * fan-out, at least 128 threads):
-//     it loads its id of the adjacency row, tests it against the pools
-//     and the history, and reads its `allow` flag while the rows load;
+//   * the wide layout, for pools past those 227 KB (ef above 8,160 with
+//     two pools at d=128, m0=32) or when the caller forces it: the two
+//     pools, their flags and the history move to a per-query workspace
+//     in device memory that the wrapper allocates; the query and the
+//     per-iteration buffers stay in shared memory. The kernel body is the
+//     same and only the pools' pointers differ, so both layouts run the
+//     same comparisons in the same order and give bit-equal output;
+//   * one thread per neighbour slot (E * fan-out, at least 128 threads,
+//     at most 256; past that each thread strides over the slots): it
+//     loads its id of the adjacency row, tests it against the pools and
+//     the history, and reads its `allow` flag while the rows load;
+//   * the layout and the striding are template parameters (kWide,
+//     kStride), so the shared layout's pools stay shared-memory pointers
+//     and the one-slot-a-thread loops stay single passes: the serving
+//     shape compiles to what it was before the wide layout existed;
 //   * the tape rows are scored by gather.cuh's `score_row`, K1's scorer
 //     with K1's lane grouping, so a distance equals K1's bit for bit;
 //   * every row takes direct loads, whatever its width or alignment: each
@@ -59,6 +71,11 @@ namespace vss {
 
 constexpr int kMaxSmem = 232448;      // 227 KB: the most a block may have
 constexpr int kMinThreads = 128;      // a block's threads, at least
+// and at most: 256 threads of at most 255 registers each fit an SM's
+// 65,536 whatever the compiler allots (one thread per slot at 1,024
+// threads of 110 registers was refused: too many resources requested for
+// launch). Past it the threads stride over the slots.
+constexpr int kMaxThreads = 256;
 
 struct BeamArgs {
   const float* q;            // [B, d]
@@ -72,37 +89,47 @@ struct BeamArgs {
   float* res_d;  // [B, ef] in / out under dual, else unused
   int32_t* res_i;
   unsigned long long* counters;  // [3]: iterations, rows scored, expansions
+  unsigned char* workspace;  // wide layout: [B, pool_total] bytes, else null
   int ef, E, fan, d, metric, max_iters, level_col, lmax;
   int P, log2p, hist_len, group, rank_lanes_log2;
-  bool vec, dual, use_history;
+  bool vec, dual, use_history, wide;
 };
 
-// Byte offsets of a block's shared memory. The Python wrapper mirrors
-// this arithmetic (`beam_smem_bytes`) to refuse a shape before launching.
+// Byte offsets of a block's buffers. The shared layout keeps all of them in
+// shared memory, in this order. The wide layout moves the pools (ckey, cid,
+// rkey, rid, cflag) and the history to the block's slice of the workspace,
+// in the same order, and keeps the rest in shared memory. `total` is a
+// block's shared memory, `pool_total` a query's workspace bytes (0 in the
+// shared layout). The Python wrapper mirrors this arithmetic
+// (`beam_smem_bytes`, `beam_pool_bytes`) to pick a layout and to refuse a
+// shape before launching.
 struct BeamLayout {
   int qs, ckey, cid, rkey, rid, hist, nid, nd, red_key, red_pos, misc;
-  int cflag, dup, okf, total;
+  int cflag, dup, okf, total, pool_total;
 };
 
 inline __host__ __device__ BeamLayout beam_layout(int ef, int n, int P, int d,
-                                                  int hist_len, bool dual) {
+                                                  int hist_len, bool dual,
+                                                  bool wide) {
   BeamLayout L;
-  int o = 0;
+  int o = 0, g = 0;
+  int& p = wide ? g : o;  // where the pools and the history go
   L.qs = o, o += 4 * d;
-  L.ckey = o, o += 4 * P;
-  L.cid = o, o += 4 * P;
-  L.rkey = o, o += dual ? 4 * P : 0;
-  L.rid = o, o += dual ? 4 * P : 0;
-  L.hist = o, o += 4 * hist_len;
+  L.ckey = p, p += 4 * P;
+  L.cid = p, p += 4 * P;
+  L.rkey = p, p += dual ? 4 * P : 0;
+  L.rid = p, p += dual ? 4 * P : 0;
+  L.hist = p, p += 4 * hist_len;
   L.nid = o, o += 4 * n;
   L.nd = o, o += 4 * n;
   L.red_key = o, o += 4 * 32;
   L.red_pos = o, o += 4 * 32;
   L.misc = o, o += 4 * 4;
-  L.cflag = o, o += P;
+  L.cflag = p, p += P;
   L.dup = o, o += n;
   L.okf = o, o += n;
   L.total = (o + 15) / 16 * 16;
+  L.pool_total = (g + 15) / 16 * 16;
   return L;
 }
 
@@ -210,33 +237,50 @@ __device__ __forceinline__ void merge_network(float* ckey, int32_t* cid,
   }
 }
 
-template <typename T>
+// f(s) for the neighbour slots s < n this thread owns: its own slot, or
+// with kStride (more slots than threads) every blockDim-th slot from it.
+template <bool kStride, typename F>
+__device__ __forceinline__ void each_slot(int n, F&& f) {
+  if (kStride) {
+    for (int s = threadIdx.x; s < n; s += blockDim.x) f(s);
+  } else if (static_cast<int>(threadIdx.x) < n) {
+    f(static_cast<int>(threadIdx.x));
+  }
+}
+
+template <typename T, bool kWide, bool kStride>
 __global__ void beam_kernel(BeamArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int64_t b = blockIdx.x;
   const int ef = a.ef, E = a.E, fan = a.fan, d = a.d, P = a.P;
-  const int n = E * fan;  // neighbour slots of one iteration, n <= nt
-  const BeamLayout L = beam_layout(ef, n, P, d, a.hist_len, a.dual);
+  const int n = E * fan;  // neighbour slots of one iteration
+  const BeamLayout L = beam_layout(ef, n, P, d, a.hist_len, a.dual, kWide);
+  // the pools and the history: in shared memory, or in this query's slice
+  // of the workspace
+  unsigned char* pool = kWide ? a.workspace + b * L.pool_total : smem;
   float* qs = reinterpret_cast<float*>(smem + L.qs);
-  float* ckey = reinterpret_cast<float*>(smem + L.ckey);
-  int32_t* cid = reinterpret_cast<int32_t*>(smem + L.cid);
-  float* rkey = reinterpret_cast<float*>(smem + L.rkey);
-  int32_t* rid = reinterpret_cast<int32_t*>(smem + L.rid);
-  int32_t* hist = reinterpret_cast<int32_t*>(smem + L.hist);
+  float* ckey = reinterpret_cast<float*>(pool + L.ckey);
+  int32_t* cid = reinterpret_cast<int32_t*>(pool + L.cid);
+  float* rkey = reinterpret_cast<float*>(pool + L.rkey);
+  int32_t* rid = reinterpret_cast<int32_t*>(pool + L.rid);
+  int32_t* hist = reinterpret_cast<int32_t*>(pool + L.hist);
   int32_t* nid = reinterpret_cast<int32_t*>(smem + L.nid);
   float* nd = reinterpret_cast<float*>(smem + L.nd);
   unsigned* red_key = reinterpret_cast<unsigned*>(smem + L.red_key);
   int* red_pos = reinterpret_cast<int*>(smem + L.red_pos);
   int* live_count = reinterpret_cast<int*>(smem + L.misc);
-  unsigned char* cflag = smem + L.cflag;
+  unsigned char* cflag = pool + L.cflag;
   unsigned char* dup = smem + L.dup;
   unsigned char* okf = smem + L.okf;
   // the picks of one iteration: pool positions and node ids, E each; they
-  // share the scored batch's arrays, which are idle while picking
+  // share the scored batch's arrays, which are idle while picking. Under
+  // kStride the picked ids are then copied over the positions (`picked`),
+  // so that the adjacency rows may overwrite `nid`
   int* sel_pos = reinterpret_cast<int*>(nd);
   int32_t* sel_id = nid;
+  int32_t* picked = reinterpret_cast<int32_t*>(nd);
 
   for (int e = tid; e < d; e += nt) qs[e] = a.q[b * d + e];
   for (int i = tid; i < ef; i += nt) {
@@ -255,13 +299,15 @@ __global__ void beam_kernel(BeamArgs a) {
   const int g = tid / group;
   const int gl = tid % group;
   const int ngroups = nt / group;
-  const int pick = tid / fan;   // the pick whose row holds this thread's slot
-  const int in_row = tid % fan;
-  const int parts = nt / n;     // threads per slot in the membership test
-  const int part = tid / n;
-  const int slot = tid % n;
+  // threads per slot in the membership test (1 when the slots outnumber
+  // the threads, which then stride over them)
+  const int parts = n <= nt ? nt / n : 1;
+  // one slot a thread (not kStride): the pick whose row holds this
+  // thread's slot, the slot's place in that row, and the thread's part and
+  // slot in the membership test, fixed for the whole beam
+  const int my_pick = tid / fan, my_in_row = tid % fan;
+  const int my_part = tid / n, my_slot = tid % n;
   const int rl = a.rank_lanes_log2;  // 2^rl lanes rank one scored entry
-  const int rank_of = tid >> rl;
   const int rank_lane = tid & ((1 << rl) - 1);
   int it = 0;
   unsigned long long scored = 0, expansions = 0;  // thread 0's counts
@@ -284,36 +330,48 @@ __global__ void beam_kernel(BeamArgs a) {
       }
       __syncthreads();
     }
-    int my_sel = -1;
-    if (tid < n) my_sel = sel_id[pick];
-    if (a.use_history && tid < E) hist[it * E + tid] = sel_id[tid];
-    __syncthreads();  // the picks are read: nid / nd may be overwritten
+    // each slot's pick: in a register when a thread owns one slot, else
+    // copied over the positions (sel_pos was last read before the pick's
+    // barrier)
+    int32_t my_sel = -1;
+    if (kStride) {
+      for (int j = tid; j < E; j += nt) picked[j] = sel_id[j];
+    } else if (tid < n) {
+      my_sel = sel_id[my_pick];
+    }
+    if (a.use_history)
+      for (int j = tid; j < E; j += nt) hist[it * E + j] = sel_id[j];
+    __syncthreads();  // the picks are read: nid may be overwritten
 
-    // ---- the picks' adjacency rows, one id per thread
-    if (tid < n) {
+    // ---- the picks' adjacency rows, one id per slot
+    each_slot<kStride>(n, [&](int s) {
+      const int in_row = kStride ? s % fan : my_in_row;
+      const int32_t sel = kStride ? picked[s / fan] : my_sel;
       const int32_t* src = nullptr;
-      if (my_sel >= 0) {
+      if (sel >= 0) {
         if (a.level_col < 0) {
-          src = a.adj + static_cast<int64_t>(my_sel) * fan;
+          src = a.adj + static_cast<int64_t>(sel) * fan;
         } else {
           const int32_t row =
-              a.upper_row[static_cast<int64_t>(my_sel) * a.lmax + a.level_col];
+              a.upper_row[static_cast<int64_t>(sel) * a.lmax + a.level_col];
           if (row >= 0) src = a.adj + static_cast<int64_t>(row) * fan;
         }
       }
       if (src != nullptr)
-        copy_row<int32_t>(nid + (tid - in_row), src, fan, in_row, fan);
+        copy_row<int32_t>(nid + (s - in_row), src, fan, in_row, fan);
       else
-        nid[tid] = -1;
-      dup[tid] = 0;
-    }
+        nid[s] = -1;
+      dup[s] = 0;
+    });
     __syncthreads();
 
     // ---- drop ids already in the candidate pool, the history or the
     // result pool: `parts` threads share a slot's test, each taking every
     // parts-th known id
-    {
-      const int32_t mine = part < parts ? nid[slot] : -1;
+    each_slot<kStride>(parts * n, [&](int u) {
+      const int part = kStride ? u / n : my_part;
+      const int slot = kStride ? u % n : my_slot;
+      const int32_t mine = nid[slot];
       if (mine >= 0) {
         int found = 0;
 #pragma unroll 4
@@ -329,33 +387,45 @@ __global__ void beam_kernel(BeamArgs a) {
         }
         if (found) dup[slot] = 1;
       }
-    }
+    });
     __syncthreads();
-    if (tid < n && dup[tid]) nid[tid] = -1;
+    each_slot<kStride>(n, [&](int s) {
+      if (dup[s]) nid[s] = -1;
+    });
     if (E > 1) {
       // ---- and ids that an earlier pick's row already holds
       __syncthreads();
-      if (tid < n) {
-        const int32_t mine = nid[tid];
-        const int prior = pick * fan;
+      each_slot<kStride>(n, [&](int s) {
+        const int32_t mine = nid[s];
+        const int prior = (kStride ? s / fan : my_pick) * fan;
         int found = 0;
         if (mine >= 0) {
 #pragma unroll 4
           for (int i = 0; i < prior; ++i) found |= nid[i] == mine;
         }
-        dup[tid] = found ? 1 : 0;
-      }
+        dup[s] = found ? 1 : 0;
+      });
       __syncthreads();
-      if (tid < n && dup[tid]) nid[tid] = -1;
+      each_slot<kStride>(n, [&](int s) {
+        if (dup[s]) nid[s] = -1;
+      });
     }
-    const int32_t my_id = tid < n ? nid[tid] : -1;
-    {
-      const unsigned live = __ballot_sync(0xffffffffu, my_id >= 0);
-      if ((tid & 31) == 0 && live != 0) atomicAdd(live_count, __popc(live));
-    }
-    // the admission flag loads while the rows do
+    // the live count, and the admission flags: the first slot of each
+    // thread keeps its flag in a register while the rows load and stores
+    // it after the scoring; with kStride further slots store theirs at once
     bool my_ok = false;
-    if (a.dual && my_id >= 0) my_ok = a.allow[my_id] != 0;
+    for (int s0 = 0; s0 < n; s0 += nt) {
+      const int s = s0 + tid;
+      const int32_t id = s < n ? nid[s] : -1;
+      const unsigned live = __ballot_sync(0xffffffffu, id >= 0);
+      if ((tid & 31) == 0 && live != 0) atomicAdd(live_count, __popc(live));
+      const bool ok = a.dual && id >= 0 && a.allow[id] != 0;
+      if (s0 == 0)
+        my_ok = ok;
+      else if (s < n)
+        okf[s] = ok ? 1 : 0;
+      if (!kStride) break;  // one slot a thread: a single pass
+    }
     __syncthreads();  // nid is final
 
     // ---- score the survivors against the query (K1's work)
@@ -377,7 +447,8 @@ __global__ void beam_kernel(BeamArgs a) {
     // count of entries that sort before it by (key, position), counted
     // by 2^rl lanes together; it lands reversed in the tail of the merge
     // buffer. Under `dual` the same for the admissible entries.
-    {
+    for (int e0 = 0; e0 < n; e0 += nt >> rl) {
+      const int rank_of = e0 + (tid >> rl);
       const bool mine_in = rank_of < n;
       const float mine = mine_in ? nd[rank_of] : CUDART_INF_F;
       const bool mine_ok = mine_in && a.dual && okf[rank_of] != 0;
@@ -409,6 +480,7 @@ __global__ void beam_kernel(BeamArgs a) {
           rid[P - 1 - rrank] = id;
         }
       }
+      if (!kStride) break;  // every entry has its lanes: a single pass
     }
     for (int i = ef + tid; i < P - n; i += nt) {
       ckey[i] = CUDART_INF_F, cid[i] = -1, cflag[i] = 1;
@@ -441,16 +513,20 @@ __global__ void beam_kernel(BeamArgs a) {
 
 // Fills the derived fields of `a` (P, hist_len, group, vec) and the
 // block's thread count: one thread per neighbour slot, at least
-// kMinThreads, whole warps. Returns the block's shared-memory bytes, or -1
-// for a shape the kernel does not take.
+// kMinThreads and at most kMaxThreads (then the threads stride over the
+// slots), whole warps. Returns the layout, or sets `ok` false for a shape
+// the kernel does not take.
 template <typename T>
-int64_t plan(BeamArgs& a, int& threads) {
-  const int n = a.E * a.fan;
+BeamLayout plan(BeamArgs& a, int& threads, bool& ok) {
+  BeamLayout L = {};
+  ok = false;
+  const int64_t n = static_cast<int64_t>(a.E) * a.fan;
   if (a.ef < 1 || a.E < 1 || a.fan < 1 || a.d < 1 || a.max_iters < 1 ||
-      n > 1024)
-    return -1;
-  threads = (n + 31) / 32 * 32;
+      n > (1 << 24))
+    return L;
+  threads = static_cast<int>((n + 31) / 32 * 32);
   if (threads < kMinThreads) threads = kMinThreads;
+  if (threads > kMaxThreads) threads = kMaxThreads;
   int64_t P = 1;
   a.log2p = 0;
   while (P < static_cast<int64_t>(a.ef) + n) P <<= 1, ++a.log2p;
@@ -464,29 +540,50 @@ int64_t plan(BeamArgs& a, int& threads) {
   // the sizes as 64-bit sums first: the layout's ints must not overflow
   const int64_t rough = 4LL * a.d + (a.dual ? 17 : 9) * P + 4 * hist_len +
                         10LL * n + 288;
-  if (rough > (1LL << 30)) return rough;
+  if (rough > (1LL << 30)) return L;
   a.P = static_cast<int>(P);
   a.hist_len = static_cast<int>(hist_len);
-  return beam_layout(a.ef, n, a.P, a.d, a.hist_len, a.dual).total;
+  ok = true;
+  return beam_layout(a.ef, static_cast<int>(n), a.P, a.d, a.hist_len, a.dual,
+                     a.wide);
 }
 
-// `smem_expected` is the wrapper's own count of the block's shared-memory
-// bytes (`beam_smem_bytes`, by which it refuses a shape before launching):
-// a count that differs from the layout's is refused here.
-template <typename T>
-int launch_beam(BeamArgs a, int B, int64_t smem_expected, cudaStream_t s) {
-  int threads = 0;
-  const int64_t smem = plan<T>(a, threads);
-  if (smem < 0 || smem > kMaxSmem || smem != smem_expected)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, bool kWide, bool kStride>
+int launch_kernel(const BeamArgs& a, int B, int threads, int smem,
+                  cudaStream_t s) {
+  auto kernel = beam_kernel<T, kWide, kStride>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        beam_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  beam_kernel<T><<<B, threads, static_cast<size_t>(smem), s>>>(a);
+  kernel<<<B, threads, static_cast<size_t>(smem), s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// `smem_expected` and `pool_expected` are the wrapper's own counts of a
+// block's shared memory and a query's workspace bytes (`beam_smem_bytes`,
+// `beam_pool_bytes`, by which it picks the layout and refuses a shape
+// before launching): counts that differ from the layout's are refused
+// here, as is a workspace smaller than B queries' slices.
+template <typename T>
+int launch_beam(BeamArgs a, int B, int64_t smem_expected,
+                int64_t pool_expected, int64_t workspace_bytes,
+                cudaStream_t s) {
+  int threads = 0;
+  bool ok = false;
+  const BeamLayout L = plan<T>(a, threads, ok);
+  if (!ok || L.total > kMaxSmem || L.total != smem_expected ||
+      L.pool_total != pool_expected ||
+      static_cast<int64_t>(B) * L.pool_total > workspace_bytes ||
+      (a.wide && a.workspace == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool stride = a.E * a.fan > threads;
+  if (a.wide)
+    return stride ? launch_kernel<T, true, true>(a, B, threads, L.total, s)
+                  : launch_kernel<T, true, false>(a, B, threads, L.total, s);
+  return stride ? launch_kernel<T, false, true>(a, B, threads, L.total, s)
+                : launch_kernel<T, false, false>(a, B, threads, L.total, s);
 }
 
 }  // namespace vss
@@ -494,16 +591,21 @@ int launch_beam(BeamArgs a, int B, int64_t smem_expected, cudaStream_t s) {
 // The pools arrive seeded and sorted in cand_* / res_* and leave in the
 // same buffers; the three counters must be zero on entry. `level` 0 walks
 // adj0 (`adj`, fan-out `fan`), level >= 1 walks upper_adj through column
-// level - 1 of upper_row. `smem_bytes` is the caller's count of a block's
-// shared memory, which must equal the layout's.
+// level - 1 of upper_row. `wide` selects the wide layout, whose pools live
+// in `workspace` (`workspace_bytes` long, at least B * pool_bytes).
+// `smem_bytes` and `pool_bytes` are the caller's counts of a block's
+// shared memory and a query's workspace slice, which must equal the
+// layout's.
 extern "C" int vss_beam_search(const float* q, const float* qn,
                                const void* table, const int32_t* adj,
                                const int32_t* upper_row, const void* allow,
                                float* cand_d, int32_t* cand_i, float* res_d,
-                               int32_t* res_i, int64_t* counters, int B,
-                               int ef, int E, int fan, int d, int dtype,
-                               int metric, int max_iters, int level, int lmax,
-                               int dual, int use_history, int smem_bytes,
+                               int32_t* res_i, int64_t* counters,
+                               void* workspace, int B, int ef, int E, int fan,
+                               int d, int dtype, int metric, int max_iters,
+                               int level, int lmax, int dual, int use_history,
+                               int wide, int64_t smem_bytes,
+                               int64_t pool_bytes, int64_t workspace_bytes,
                                void* stream) {
   using namespace vss;
   if (B <= 0) return 0;
@@ -512,13 +614,34 @@ extern "C" int vss_beam_search(const float* q, const float* qn,
   a.allow = static_cast<const uint8_t*>(allow);
   a.cand_d = cand_d, a.cand_i = cand_i, a.res_d = res_d, a.res_i = res_i;
   a.counters = reinterpret_cast<unsigned long long*>(counters);
+  a.workspace = static_cast<unsigned char*>(workspace);
   a.ef = ef, a.E = E, a.fan = fan, a.d = d, a.metric = metric;
   a.max_iters = max_iters, a.level_col = level - 1, a.lmax = lmax;
   a.P = 0, a.log2p = 0, a.hist_len = 0, a.group = 1, a.rank_lanes_log2 = 0;
   a.vec = false;
-  a.dual = dual != 0, a.use_history = use_history != 0;
+  a.dual = dual != 0, a.use_history = use_history != 0, a.wide = wide != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == I8) return launch_beam<int8_t>(a, B, smem_bytes, s);
-  if (dtype == BF16) return launch_beam<__nv_bfloat16>(a, B, smem_bytes, s);
-  return launch_beam<float>(a, B, smem_bytes, s);
+  if (dtype == I8)
+    return launch_beam<int8_t>(a, B, smem_bytes, pool_bytes, workspace_bytes, s);
+  if (dtype == BF16)
+    return launch_beam<__nv_bfloat16>(a, B, smem_bytes, pool_bytes,
+                                      workspace_bytes, s);
+  return launch_beam<float>(a, B, smem_bytes, pool_bytes, workspace_bytes, s);
+}
+
+// A block's shared-memory bytes and a query's workspace bytes for a shape
+// and layout ({-1, -1} for a shape the kernel does not take): the layout's
+// own counts, which `beam_smem_bytes` and `beam_pool_bytes` mirror.
+extern "C" void vss_beam_layout_bytes(int ef, int E, int fan, int d,
+                                      int max_iters, int dual, int use_history,
+                                      int wide, int64_t* out) {
+  using namespace vss;
+  BeamArgs a = {};
+  a.ef = ef, a.E = E, a.fan = fan, a.d = d, a.max_iters = max_iters;
+  a.dual = dual != 0, a.use_history = use_history != 0, a.wide = wide != 0;
+  int threads = 0;
+  bool ok = false;
+  const BeamLayout L = plan<float>(a, threads, ok);
+  out[0] = ok ? L.total : -1;
+  out[1] = ok ? L.pool_total : -1;
 }

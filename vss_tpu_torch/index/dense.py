@@ -3,10 +3,9 @@
 Reproduces `vss_tpu/index/dense.py`: owns the graph tensors plus the
 host-side bookkeeping (rowid <-> slot maps, the free-slot ring recycled
 by inserts, upper-row allocation, the dirty flag). Construction goes
-through the native builder or the wave builder (the bulk `exact` builder
-is not ported yet: ROADMAP.md, queue A item 8); serving through the graph
-search and the exact scan, with the per-graph-version pivot and norm
-caches.
+through the bulk builder (`index/exact_build.py`), the native builder or
+the wave builder; serving through the graph search and the exact scan,
+with the per-graph-version pivot and norm caches.
 
 Deletion is a tombstone: the slot's `valid` bit clears, results exclude
 it, the graph keeps routing through it, and the slot is recycled by the
@@ -104,6 +103,9 @@ class HNSWIndex:
         # were computed from
         self._pivot_cache: Optional[tuple] = None
         self._norms_cache: Optional[tuple] = None
+        # what the exact builder reports: its candidate mode, and in
+        # 'hybrid' the sampled list recall and whether the scan pass ran
+        self.build_stats: dict = {}
 
     # ------------------------------------------------------------- build
     @classmethod
@@ -123,16 +125,17 @@ class HNSWIndex:
     ) -> "HNSWIndex":
         """Bulk-build over a full vector set (the CREATE INDEX path).
 
-        method: 'wave' (batched incremental construction on the device,
-        `index/build.py`), 'native' (multithreaded C++ host builder, all
-        cores, nondeterministic interleaving) or 'auto' (the native
-        builder on one thread, deterministic, for n <= 8192). The bulk
-        device builder 'exact', which 'auto' takes above 8192 rows, is
-        not ported yet.
+        method: 'exact' (bulk construction from kNN candidate lists on the
+        device, `index/exact_build.py`), 'wave' (batched incremental
+        construction on the device, `index/build.py`), 'native'
+        (multithreaded C++ host builder, all cores, nondeterministic
+        interleaving) or 'auto': the native builder on one thread
+        (deterministic) for n <= 8192, 'exact' above. `vectors` may be a
+        tensor: the exact builder keeps it on its device.
         """
-        if isinstance(vectors, torch.Tensor):
-            vectors = vectors.detach().cpu().numpy()
-        vectors = np.asarray(vectors, np.float32)
+        on_device = isinstance(vectors, torch.Tensor)
+        if not on_device:
+            vectors = np.asarray(vectors, np.float32)
         n = vectors.shape[0]
         idx = cls(config, capacity=64, device=device)
         if n == 0:
@@ -147,40 +150,53 @@ class HNSWIndex:
                 method, native_threads = "native", 1  # deterministic
             else:
                 method = "exact"
-        if method == "exact":
-            raise NotImplementedError(
-                "build method 'exact' is not ported yet (ROADMAP.md queue A "
-                "item 8); use method='native' or method='wave'"
-            )
-        if method not in ("native", "wave"):
+        if method not in ("native", "wave", "exact"):
             raise ValueError(f"unknown build method '{method}'")
+        scale = 1.0
         if config.storage_dtype == "int8":
             # graph-internal values live in scaled units; the scale maps
             # them back for user-visible distances
-            idx.scale_max_abs = float(np.abs(vectors).max())
+            idx.scale_max_abs = float(
+                vectors.abs().max() if on_device else np.abs(vectors).max())
             idx.vector_scale = idx.scale_max_abs / 127.0 or 1.0
-            vectors = vectors / idx.vector_scale
-        if method == "native":
-            graph, upper_used = build_graph_native(
-                vectors, config, seed=seed, rowids=rowids,
-                n_threads=native_threads, device=idx.device,
+            scale = idx.vector_scale
+        if method == "exact":
+            from vss_tpu_torch.index.exact_build import build_graph_exact
+
+            # the vectors go unscaled: the divide happens in the tape cast,
+            # and the side tape comes from the builder's own device copy
+            graph, upper_used, rtape = build_graph_exact(
+                vectors, config, seed=seed, rowids=rowids.astype(np.int32),
+                progress=progress, want_rerank=True, prescale=scale, device=idx.device,
+                stats=idx.build_stats,
             )
+            idx.rerank_tape = rtape
         else:
-            graph, upper_used = build_graph_batched(
-                vectors, config, seed=seed, wave_size=wave_size,
-                rowids=rowids.astype(np.int32), efc=efc, expand=expand,
-                progress=progress, device=idx.device,
-            )
+            if on_device:
+                vectors = vectors.detach().cpu().numpy().astype(np.float32)
+            if scale != 1.0:
+                vectors = vectors / scale
+            if method == "native":
+                graph, upper_used = build_graph_native(
+                    vectors, config, seed=seed, rowids=rowids,
+                    n_threads=native_threads, device=idx.device,
+                )
+            else:
+                graph, upper_used = build_graph_batched(
+                    vectors, config, seed=seed, wave_size=wave_size,
+                    rowids=rowids.astype(np.int32), efc=efc, expand=expand,
+                    progress=progress, device=idx.device,
+                )
+            rr = config.rerank_dtype
+            if rr is not None:
+                tape = torch.zeros((graph.capacity, config.dims), dtype=rr, device=idx.device)
+                tape[:n] = torch.from_numpy(vectors).to(idx.device, rr)
+                idx.rerank_tape = tape
         idx.graph = graph
         idx.upper_used = upper_used
         idx.next_slot = n
         idx.rowid_to_slot = {int(r): i for i, r in enumerate(rowids)}
         idx._insert_seed = n
-        rr = config.rerank_dtype
-        if rr is not None:
-            tape = torch.zeros((graph.capacity, config.dims), dtype=rr, device=idx.device)
-            tape[:n] = torch.from_numpy(vectors).to(idx.device, rr)
-            idx.rerank_tape = tape
         idx.dirty = True
         return idx
 

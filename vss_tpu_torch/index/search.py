@@ -17,8 +17,9 @@ kernels inside. Here, for CUDA tensors, `beam_search_base` is one launch
 of the `beam_search` kernel (`csrc/beam.cu`): one thread block per query
 runs the whole loop with the pools in shared memory, the adjacency load
 (kernel K5's work) and the scoring (kernel K1's) as device functions
-inside it, and no host sync. Nothing of one query's state is read by
-another, so the batch's lockstep loop and B independent loops give the
+inside it, and no host sync (pools too large for shared memory live in a
+per-query workspace in device memory instead). Nothing of one query's
+state is read by another, so the batch's lockstep loop and B independent loops give the
 same pools; the iteration counter is the largest any query ran.
 
 `_beam_search_base_plain` is that kernel's plain version and what runs
@@ -51,14 +52,13 @@ _INF = float("inf")
 # host syncs of the plain beam loop's done latch: one per this many iterations
 _SYNC_EVERY = 4
 
-# the limits csrc/beam.cu holds itself to: a block's shared memory, and
-# one thread per neighbour slot (E * fan-out)
+# a block's shared memory, the most csrc/beam.cu asks for; past it the
+# pools move to the wide layout's workspace in device memory
 _BEAM_MAX_SMEM = 232448
-_BEAM_MAX_THREADS = 1024
 
 _BEAM = csrc.register(csrc.Kernel(
     "beam_search", "beam", "vss_beam_search",
-    [csrc.PTR] * 11 + [csrc.I32] * 13,
+    [csrc.PTR] * 12 + [csrc.I32] * 13 + [csrc.I64] * 3,
 ))
 
 
@@ -213,17 +213,36 @@ def _seed_pools(q, seeds, seed_d, ef: int, allow):
     return cand_d, cand_i, res_d, res_i
 
 
-def beam_smem_bytes(ef: int, expand: int, fan: int, d: int, max_iters: int,
-                    dual_pool: bool, use_history: bool) -> int:
-    """Shared-memory bytes one block of the beam kernel needs: the layout
-    arithmetic of `csrc/beam.cu` (`beam_layout`), which refuses a launch
-    whose count differs from its own."""
+def _beam_sizes(ef, expand, fan, d, max_iters, dual_pool, use_history):
+    """(shared bytes besides the pools, pool and history bytes) of one
+    query, each unrounded: the layout arithmetic of `csrc/beam.cu`."""
     n = expand * fan
     pow2 = 1 << (ef + n - 1).bit_length()
     hist_len = max_iters * expand if use_history else 0
-    total = (4 * d + (17 if dual_pool else 9) * pow2 + 4 * hist_len + 10 * n
-             + 4 * (32 + 32 + 4))
-    return (total + 15) // 16 * 16
+    rest = 4 * d + 10 * n + 4 * (32 + 32 + 4)
+    pools = (17 if dual_pool else 9) * pow2 + 4 * hist_len
+    return rest, pools
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def beam_smem_bytes(ef: int, expand: int, fan: int, d: int, max_iters: int,
+                    dual_pool: bool, use_history: bool, wide: bool = False) -> int:
+    """Shared-memory bytes one block of the beam kernel needs: the layout
+    arithmetic of `csrc/beam.cu` (`beam_layout`), which refuses a launch
+    whose count differs from its own. The shared layout holds the pools
+    too; the wide layout only the query and the per-iteration buffers."""
+    rest, pools = _beam_sizes(ef, expand, fan, d, max_iters, dual_pool, use_history)
+    return _round16(rest if wide else rest + pools)
+
+
+def beam_pool_bytes(ef: int, expand: int, fan: int, d: int, max_iters: int,
+                    dual_pool: bool, use_history: bool) -> int:
+    """Workspace bytes one query of the beam kernel's wide layout needs:
+    its pools, their flags and its history."""
+    return _round16(_beam_sizes(ef, expand, fan, d, max_iters, dual_pool, use_history)[1])
 
 
 def _beam_search_base_cuda(graph, config, q, seeds, seed_d, ef, allow, E, max_iters, level,
@@ -240,23 +259,24 @@ def _beam_search_base_cuda(graph, config, q, seeds, seed_d, ef, allow, E, max_it
 
 
 def _beam_launch(graph, config, q, qn, pools, ef, allow, E, max_iters, level, dual_pool,
-                 use_history):
+                 use_history, _wide=False):
     """One launch of the `beam_search` kernel over pools seeded by
     `_seed_pools`, which it updates in place. Returns (res_d, res_i,
     cand_i, counters) with counters an int64 [3] tensor: iterations, rows
-    scored, nodes expanded."""
+    scored, nodes expanded. The pools stay in a block's shared memory
+    where they fit, else (or with `_wide`, which tests use to hold the two
+    layouts equal) they go to the wide layout's workspace."""
     fan = config.m0 if level == 0 else config.m
-    n = E * fan
     B, d = q.shape[0], graph.vectors.shape[1]
-    need = beam_smem_bytes(ef, E, fan, d, max_iters, dual_pool, use_history)
+    sizes = (ef, E, fan, d, max_iters, dual_pool, use_history)
+    wide = _wide or beam_smem_bytes(*sizes) > _BEAM_MAX_SMEM
+    need = beam_smem_bytes(*sizes, wide=wide)
+    pool = beam_pool_bytes(*sizes) if wide else 0
     if need > _BEAM_MAX_SMEM:
         raise ValueError(
-            f"beam_search: ef={ef}, E={E}, m0={fan} need {need} bytes of shared memory "
-            f"per query, over the {_BEAM_MAX_SMEM} a block may have")
-    if n > _BEAM_MAX_THREADS:
-        raise ValueError(
-            f"beam_search: E={E}, m0={fan} need one thread per neighbour slot, "
-            f"{n} of at most {_BEAM_MAX_THREADS}")
+            f"beam_search: d={d}, E={E}, m0={fan} need {need} bytes of shared memory "
+            f"per query even with the pools in device memory, over the {_BEAM_MAX_SMEM} "
+            f"a block may have")
     q = csrc.operand(q)
     qn = csrc.operand(qn)
     table = csrc.operand(graph.vectors)
@@ -275,15 +295,17 @@ def _beam_launch(graph, config, q, qn, pools, ef, allow, E, max_iters, level, du
                          f"{tuple(upper_row.shape)} {upper_row.dtype}, allow {allow.dtype} "
                          f"do not fit level {level}, fan-out {fan}")
     counters = torch.zeros(3, dtype=torch.int64, device=q.device)
+    workspace = torch.empty((B * pool,), dtype=torch.uint8, device=q.device)
     if B:
         _BEAM.launch(
-            (q, qn, table, adj, upper_row, allow, cand_d, cand_i, res_d, res_i),
+            (q, qn, table, adj, upper_row, allow, cand_d, cand_i, res_d, res_i, workspace),
             q.data_ptr(), qn.data_ptr(), table.data_ptr(), adj.data_ptr(),
             upper_row.data_ptr(), allow.data_ptr(), cand_d.data_ptr(), cand_i.data_ptr(),
             res_d.data_ptr(), res_i.data_ptr(), counters.data_ptr(),
+            workspace.data_ptr() if wide else None,
             B, ef, E, fan, d, csrc.dtype_code(table.dtype),
             METRIC_IDS[Metric.parse(config.metric)], max_iters, level, upper_row.shape[1],
-            int(dual_pool), int(use_history), need,
+            int(dual_pool), int(use_history), int(wide), need, pool, workspace.numel(),
         )
     if not dual_pool:
         res_d, res_i = cand_d, cand_i
@@ -318,9 +340,9 @@ def beam_search_base(
     Returns (res_d [B, ef] ascending, res_i [B, ef], cand_i [B, ef],
     (iterations, distance evaluations)) with the counters as 0-d tensors.
 
-    CUDA tensors: one launch of the `beam_search` kernel, no host sync; a
-    shape whose pools do not fit a block's shared memory raises
-    `ValueError`. CPU tensors: the plain loop.
+    CUDA tensors: one launch of the `beam_search` kernel, no host sync, at
+    any ef and fan-out (pools past a block's shared memory go to a
+    workspace in device memory). CPU tensors: the plain loop.
     """
     if max_iters <= 0:
         max_iters = 4 + (2 * ef) // expand

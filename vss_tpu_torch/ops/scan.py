@@ -199,6 +199,16 @@ def scan_topk(
     are exact with respect to the rerank tape when given, else to the
     stored values. Runs on `device` (CUDA unless "cpu" is passed), where
     the inputs are moved. `bruteforce_topk` stays the bit-exact oracle.
+
+    Where this differs from the JAX package: `keep` is capped at the
+    tape's 32-row sub-segments, `4 * ceil(nx / 128)`, where
+    `vss_tpu/ops/scan.py:401-402` caps it at the 128-row super-segments.
+    The JAX cap can fall below k and so breaks the winnow's bound (at most
+    k segments hold the true top-k): on small tapes at large k (3,000
+    rows at k=128, 4,096 and 8,192 rows at k=100 with keep=2k) the JAX
+    package misses true neighbours and this function does not. Where
+    neither cap binds (20,000 rows at k=100) the two agree.
+    `tests/test_torch_scan.py` pins both.
     """
     metric = Metric.parse(metric)
     dev = resolve_device(device)
