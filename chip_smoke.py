@@ -53,7 +53,23 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     sampled check and the scan pass (K2) makes the candidate lists, with
     recall@10 at ef 512 and 768 and K2 timed at the build's shape; with
     `--gist`, bench.py's 1,000,000 x 960 cosine arm, made on the card;
- 7. print the kernel table as one JSON line, then
+ 7. the Database (`vss_tpu_torch.Database` on the card), driven through
+    SQL at the flagship's width: the 1,000,000 x 128 corpus in a table,
+    `CREATE INDEX ... USING HNSW ... storage='int8'`, 64 single-query
+    statements through HNSW_INDEX_SCAN and `min_by`, equal to
+    `index.search`; the 2,048-query LATERAL join through HNSW_INDEX_JOIN,
+    equal to the batched `index.search`, recall@10 >= 0.85, timed and
+    profiled; the same joins on an un-indexed copy (BRUTE_FORCE_TOPK,
+    `knn_join` at k=10 through K3 and at k=100 through K4, `vss_join`),
+    equal to the oracle; the cost model's rates measured by `calibrate()`
+    and its choices, its exact scan (K2) at recall@10 >= 0.99 on the
+    first 65,536 rows; `DELETE ... WHERE id % 5 = 0` and `PRAGMA
+    hnsw_compact_index` (K5), with no deleted row returned; `CHECKPOINT`
+    to a `.vssdb` file and `Database.open`, with the join's ids and
+    distances bit-equal; the WAL: 1,024 inserts and 1,000 deletes, the
+    database dropped without a checkpoint and reopened, every insert
+    found at k=1 and no delete returned;
+ 8. print the kernel table as one JSON line, then
     {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA device and the rest of the repository beside it: without
@@ -110,6 +126,12 @@ NATIVE_RECALL = 0.9618
 # rows of the small graphs on which check_beam runs the wide layout's
 # deep-ef and many-slot variants
 N_BEAM_SMALL = 6000
+# the Database phase: single-query SQL statements timed, the rows of the
+# corpus on which the cost model must pick the exact scan, and the rows
+# inserted and deleted under the WAL
+N_SQL_SCAN, N_COST_SMALL, N_WAL_INSERT, N_WAL_DELETE = 64, 65_536, 1024, 1000
+# rows of the corpus `calibrate()` measures its rates on
+N_CALIBRATE = 1 << 18
 
 
 def log(*a):
@@ -972,6 +994,317 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
 
 
 # ----------------------------------------------------------------------
+# phase 7: the Database
+
+
+def vec_sql(v) -> str:
+    """A vector literal that parses back to the same float32 values."""
+    return "[" + ", ".join(repr(float(x)) for x in v) + f"]::FLOAT[{len(v)}]"
+
+
+def join_ids(res, id_col: str, qid_col: str, nq: int, k: int, dist_col=None):
+    """A join's rows as [nq, k] ids (and distances), -1 / +inf past the
+    rows a query got; rows come out grouped by query in rank order."""
+    qid = np.asarray(res[qid_col], np.int64)
+    ids = np.full((nq, k), -1, np.int64)
+    dist = np.full((nq, k), np.inf, np.float32)
+    rank = np.zeros(nq, np.int64)
+    got_ids = np.asarray(res[id_col], np.int64)
+    got_d = None if dist_col is None else np.asarray(res[dist_col], np.float32)
+    for j, qi in enumerate(qid):
+        r = rank[qi]
+        if r >= k:
+            fail(f"query {qi} got more than {k} rows")
+        ids[qi, r] = got_ids[j]
+        if got_d is not None:
+            dist[qi, r] = got_d[j]
+        rank[qi] = r + 1
+    return ids, dist
+
+
+def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) -> dict:
+    """Phase 7: a `Database` on the card at the flagship's width, driven
+    through SQL: CREATE INDEX, the index scan, min_by, the index join, the
+    un-indexed joins (K3, K4), the cost model, DELETE and PRAGMA
+    hnsw_compact_index, CHECKPOINT and Database.open, the WAL. Each step
+    has its launch counts zeroed before it and read after it (and added
+    to `launches`); each check fails the run."""
+    import gc
+    import tempfile
+
+    from vss_tpu_torch import Database, csrc
+    from vss_tpu_torch.ops import bruteforce_topk
+    from vss_tpu_torch.query import cost
+
+    t_phase = time.perf_counter()
+    steps = {}
+    nq = queries.shape[0]
+    x = torch.from_numpy(vecs).to(dev)
+    q_all = torch.from_numpy(queries).to(dev)
+
+    def step(label, fn):
+        csrc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in csrc.KERNELS.items() if v.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        steps[label] = {"seconds": seconds, "launches": counts}
+        log(f"database {label}: {seconds:.3f} s, launches {counts}")
+        return out
+
+    def need(label, *kernels):
+        for kname in kernels:
+            if steps[label]["launches"].get(kname, 0) <= 0:
+                fail(f"database {label}: kernel {kname} was not launched")
+
+    def explain(db, sql, op):
+        plan = db.sql("EXPLAIN " + sql)["explain"][0]
+        if op is not None and op not in plan:
+            fail(f"EXPLAIN shows no {op}: {plan}")
+        return plan
+
+    def oracle(k, x_live=None, valid=None):
+        xs = x if x_live is None else x_live
+        return batched_ids(lambda qb: bruteforce_topk(qb, xs, k, "l2sq", valid_mask=valid,
+                                                      device=dev), q_all)
+
+    truth = oracle(K)
+    truth100 = oracle(K_DEEP)
+
+    # table and index
+    db = Database(device=dev)
+    ids = np.arange(N, dtype=np.int64)
+    step("create_table", lambda: db.create_table("items", {"id": ids, "vec": vecs}))
+    step("create_index", lambda: db.sql(
+        "CREATE INDEX idx ON items USING HNSW (vec) WITH (metric='l2sq', storage='int8')"))
+    need("create_index", "native_segmin", "gather_rows")
+    index = db.indexes["idx"].index
+    if index.count != N:
+        fail(f"the SQL-built index holds {index.count} rows")
+    log(f"database CREATE INDEX: {steps['create_index']['seconds']:.2f} s for {N} rows, "
+        f"stats {index.build_stats}")
+    db.create_table("queries", {"qid": np.arange(nq, dtype=np.int64), "qvec": queries})
+
+    # HNSW_INDEX_SCAN: N_SQL_SCAN single-query statements
+    def topk_sql(v, table="items", k=K):
+        return f"SELECT id FROM {table} ORDER BY array_distance(vec, {vec_sql(v)}) LIMIT {k}"
+
+    explain(db, topk_sql(queries[0]), "HNSW_INDEX_SCAN")
+    sqls = [topk_sql(v) for v in queries[:N_SQL_SCAN]]
+    scan_rows = step("hnsw_index_scan", lambda: [db.sql(s)["id"] for s in sqls])
+    need("hnsw_index_scan", "beam_search", "gather_distances")
+    scan_ms = steps["hnsw_index_scan"]["seconds"] / N_SQL_SCAN * 1e3
+    for i, got in enumerate(scan_rows):
+        _, want = index.search(queries[i:i + 1], K, ef=EF)
+        if not np.array_equal(np.asarray(got, np.int64), want[0].cpu().numpy().astype(np.int64)):
+            fail(f"HNSW_INDEX_SCAN query {i}: {got} != index.search {want[0].tolist()}")
+    _, batched = index.search(queries[:N_SQL_SCAN], K, ef=EF)
+    same_batched = float(np.mean([np.array_equal(np.asarray(g, np.int64), b) for g, b in zip(
+        scan_rows, batched.cpu().numpy().astype(np.int64))]))
+    log(f"HNSW_INDEX_SCAN: {N_SQL_SCAN} statements, {scan_ms:.3f} ms each, ids equal "
+        f"index.search per query; equal to one batched call for {same_batched:.4f}")
+
+    # min_by
+    mb_sql = f"SELECT min_by(id, array_distance(vec, {vec_sql(queries[0])}), {K}) FROM items"
+    explain(db, mb_sql, "HNSW_INDEX_SCAN")
+    mb = step("min_by", lambda: db.sql(mb_sql))
+    mb_ids = [int(v) for v in list(mb.values())[0][0]]
+    if mb_ids != [int(v) for v in scan_rows[0]]:
+        fail(f"min_by {mb_ids} != the index scan's {list(scan_rows[0])}")
+
+    # HNSW_INDEX_JOIN: every query of the queries table at once
+    join_sql = ("SELECT qid, id, array_distance(qvec, vec) AS dist FROM queries, LATERAL "
+                "(SELECT id, vec FROM items ORDER BY array_distance(queries.qvec, items.vec) "
+                f"LIMIT {K})")
+    explain(db, join_sql, "HNSW_INDEX_JOIN")
+    db.sql(join_sql)  # warm-up
+    res = step("hnsw_index_join", lambda: db.sql(join_sql))
+    need("hnsw_index_join", "beam_search", "gather_distances", "gather_rows")
+    join_ms = steps["hnsw_index_join"]["seconds"] * 1e3
+    j_ids, j_d = join_ids(res, "id", "qid", nq, K, "dist")
+    _, want = index.search(queries, K, ef=EF)
+    if not np.array_equal(j_ids, want.cpu().numpy().astype(np.int64)):
+        fail("HNSW_INDEX_JOIN ids differ from the batched index.search")
+    r_join = recall(j_ids, truth)
+    prof = profile_batch("HNSW_INDEX_JOIN statement", lambda s: db.sql(s), join_sql, join_ms,
+                         out_dir)
+    log(f"HNSW_INDEX_JOIN: {nq} queries in one statement, {join_ms:.3f} ms, recall@10 "
+        f"{r_join:.4f}, ids equal the batched index.search")
+    if r_join < 0.85:
+        fail(f"HNSW_INDEX_JOIN recall@10 {r_join} < 0.85")
+
+    # the un-indexed joins: an un-indexed copy of the table
+    db.create_table("items_bare", {"id": ids, "vec": vecs})
+    explain(db, topk_sql(queries[0], "items_bare"), "BRUTE_FORCE_TOPK")
+    bf = step("brute_force_topk", lambda: db.sql(topk_sql(queries[0], "items_bare")))
+    need("brute_force_topk", "scan_segmin")
+    if not np.array_equal(np.asarray(bf["id"], np.int64), truth[0]):
+        fail("BRUTE_FORCE_TOPK differs from the oracle")
+    unindexed = {}
+    for k, kname in ((K, "scan_segmin"), (K_DEEP, "pairwise")):
+        kj_sql = f"SELECT l_qid, r_id FROM knn_join(queries, items_bare, qvec, vec, {k})"
+        explain(db, kj_sql, "KNN_JOIN")
+        label = f"knn_join k={k}"
+        res = step(label, lambda: db.sql(kj_sql))
+        need(label, kname)
+        got, _ = join_ids(res, "r_id", "l_qid", nq, k)
+        want = truth if k == K else truth100
+        agree = float((got == want).mean())
+        if agree != 1.0:
+            fail(f"{label}: ids equal the oracle's for only {agree}")
+        unindexed[label] = {"ms": steps[label]["seconds"] * 1e3}
+    vj_sql = f"SELECT left_qid, right_id FROM vss_join(queries, items_bare, qvec, vec, {K})"
+    res = step("vss_join", lambda: db.sql(vj_sql))
+    need("vss_join", "scan_segmin")
+    got, _ = join_ids(res, "right_id", "left_qid", nq, K)
+    if not np.array_equal(got, truth):
+        fail("vss_join differs from the oracle")
+    db.drop_table("items_bare")
+
+    # the cost model: rates measured here, then the planner's choices
+    rates = step("calibrate", lambda: cost.calibrate(
+        persist=False, n_rows=N_CALIBRATE, device=dev))
+    log(f"cost model rates on {smi}: " + json.dumps(
+        {k: rates[k] for k in ("stream_bw", "random_bw", "gather_bw", "tape_bw")}))
+    db.sql("SET hnsw_cost_model = true")
+    kj_idx = f"SELECT l_qid, r_id FROM knn_join(queries, items, qvec, vec, {K})"
+    choices = {
+        "join of 2048": explain(db, kj_idx, None).splitlines()[1].strip(),
+        "lateral join of 2048": explain(db, join_sql, None).splitlines()[1].strip(),
+        "single top-k": explain(db, topk_sql(queries[0]), None).splitlines()[1].strip(),
+    }
+    log(f"cost model choices at {N} rows: {choices}")
+    exact_checks = {}
+    if "EXACT_SCAN" in choices["join of 2048"]:
+        res = step("exact_scan_join", lambda: db.sql(kj_idx))
+        need("exact_scan_join", "native_segmin")
+        got, _ = join_ids(res, "r_id", "l_qid", nq, K)
+        exact_checks["flagship"] = recall(got, truth)
+    # a corpus where the exact scan wins: the first N_COST_SMALL rows
+    db.create_table("items_small", {"id": ids[:N_COST_SMALL], "vec": vecs[:N_COST_SMALL]})
+    db.sql("CREATE INDEX idx_small ON items_small USING HNSW (vec) "
+           "WITH (metric='l2sq', storage='int8')")
+    ks_sql = f"SELECT l_qid, r_id FROM knn_join(queries, items_small, qvec, vec, {K})"
+    choices["join of 2048, small corpus"] = explain(db, ks_sql, "EXACT_SCAN_JOIN").splitlines()[1]
+    res = step("exact_scan_join small", lambda: db.sql(ks_sql))
+    need("exact_scan_join small", "native_segmin")
+    got, _ = join_ids(res, "r_id", "l_qid", nq, K)
+    exact_checks[f"{N_COST_SMALL} rows"] = recall(got, oracle(K, x[:N_COST_SMALL]))
+    log(f"cost model: EXACT_SCAN recall@10 {exact_checks}")
+    for where, r in exact_checks.items():
+        if r < 0.99:
+            fail(f"EXACT_SCAN recall@10 {r} < 0.99 ({where})")
+    db.sql("SET hnsw_cost_model = false")
+    db.drop_table("items_small")
+
+    # DELETE and PRAGMA hnsw_compact_index
+    step("delete", lambda: db.sql("DELETE FROM items WHERE id % 5 = 0"))
+    live = ids % 5 != 0
+    if index.count != int(live.sum()) or db.table("items").num_rows != int(live.sum()):
+        fail(f"after DELETE: index {index.count}, table {db.table('items').num_rows} rows")
+    live_truth = oracle(K, valid=torch.from_numpy(live).to(dev))
+    res = step("join with tombstones", lambda: db.sql(join_sql))
+    d_ids, _ = join_ids(res, "id", "qid", nq, K)
+    if (d_ids[d_ids >= 0] % 5 == 0).any():
+        fail("a deleted row came back after DELETE")
+    r_del = recall(d_ids, live_truth)
+    step("compact", lambda: db.sql("PRAGMA hnsw_compact_index('idx')"))
+    need("compact", "gather_rows")
+    res = step("join after compact", lambda: db.sql(join_sql))
+    c_ids, c_d = join_ids(res, "id", "qid", nq, K, "dist")
+    if (c_ids[c_ids >= 0] % 5 == 0).any():
+        fail("a deleted row came back after the compaction")
+    r_comp = recall(c_ids, live_truth)
+    log(f"DELETE of {N - int(live.sum())} rows: join recall@10 {r_del:.4f}; after PRAGMA "
+        f"hnsw_compact_index {r_comp:.4f}")
+    if min(r_del, r_comp) < 0.85:
+        fail(f"recall@10 after DELETE {r_del} / compaction {r_comp} < 0.85")
+
+    # CHECKPOINT and Database.open
+    tmp = tempfile.mkdtemp(prefix="vss_db_")
+    path = os.path.join(tmp, "flagship.vssdb")
+    step("checkpoint", lambda: db.sql(f"CHECKPOINT '{path}'"))
+    size = db.sql("SELECT * FROM pragma_database_size()")
+    size = {k: int(np.asarray(v)[0]) for k, v in size.items()}
+    file_bytes = os.path.getsize(path)
+    del db, index
+    gc.collect()
+    db = step("open", lambda: Database.open(path, device=dev))
+    res = step("join after open", lambda: db.sql(join_sql))
+    o_ids, o_d = join_ids(res, "id", "qid", nq, K, "dist")
+    if not (np.array_equal(o_ids, c_ids) and np.array_equal(o_d.view(np.int32),
+                                                            c_d.view(np.int32))):
+        fail("the join's ids or distances differ across CHECKPOINT and Database.open")
+    log(f"CHECKPOINT: {steps['checkpoint']['seconds']:.2f} s, {file_bytes} bytes, "
+        f"pragma_database_size {size}; Database.open {steps['open']['seconds']:.2f} s, the "
+        f"first join (loads the index) {steps['join after open']['seconds']:.2f} s; ids and "
+        f"distances bit-equal")
+
+    # the WAL: insert and delete, drop the database without a checkpoint,
+    # reopen and replay
+    wal_path = db.enable_wal()
+    wrng = np.random.default_rng(seed + 3)
+    new_vecs, _, _ = sift_like(wrng, N_WAL_INSERT, 0, D, centers)
+    new_ids = np.arange(N, N + N_WAL_INSERT, dtype=np.int64)
+    step("wal insert", lambda: db.insert("items", {"id": new_ids, "vec": new_vecs}))
+    gone = np.flatnonzero(live)[:N_WAL_DELETE]
+    step("wal delete", lambda: db.delete("items", gone.tolist()))
+    wal_bytes = os.path.getsize(wal_path)
+    del db
+    gc.collect()
+    db = step("open with replay", lambda: Database.open(path, device=dev))
+    t = db.table("items")
+    if (t.positions_of_rowids(gone) >= 0).any():
+        fail("a deleted row came back after the replay")
+    if (t.positions_of_rowids(new_ids) < 0).any():
+        fail("an inserted row is missing after the replay")
+    db.create_table("new_rows", {"nid": new_ids, "vec": new_vecs})
+    res = step("wal self-match", lambda: db.sql(
+        "SELECT left_nid, right_id FROM vss_join(new_rows, items, vec, vec, 1)"))
+    if not np.array_equal(np.asarray(res["right_id"], np.int64), new_ids):
+        fail("an acknowledged insert does not find itself at k=1 after the replay")
+    res = step("join after replay", lambda: db.sql(join_sql))
+    w_ids, _ = join_ids(res, "id", "qid", nq, K)
+    if np.isin(w_ids, gone).any():
+        fail("a deleted row came back in the join after the replay")
+    idx2 = db.indexes["idx"].index
+    if idx2.count != t.num_rows:
+        fail(f"after the replay the index holds {idx2.count} rows, the table {t.num_rows}")
+    log(f"WAL: {N_WAL_INSERT} inserts and {N_WAL_DELETE} deletes, {wal_bytes} bytes of log; "
+        f"open with replay {steps['open with replay']['seconds']:.2f} s (open without a log "
+        f"{steps['open']['seconds']:.2f} s); every insert finds itself at k=1, no delete "
+        f"returns")
+    del db, idx2
+    gc.collect()
+    for name in os.listdir(tmp):
+        os.remove(os.path.join(tmp, name))
+    os.rmdir(tmp)
+    phase_s = time.perf_counter() - t_phase
+    log(f"database phase: {phase_s:.1f} s")
+    return {
+        "card": smi, "rows": N, "queries": nq, "seconds": phase_s, "steps": steps,
+        "create_index_s": steps["create_index"]["seconds"],
+        "hnsw_index_scan": {"statements": N_SQL_SCAN, "ms_per_statement": scan_ms,
+                            "equal_to_one_batched_call": same_batched},
+        "hnsw_index_join": {"ms_per_statement": join_ms, "recall_at_10": r_join,
+                            "profile": prof},
+        "unindexed": unindexed, "cost_model": {"rates": {
+            k: rates[k] for k in ("stream_bw", "random_bw", "gather_bw", "tape_bw")},
+            "choices": choices, "exact_recall_at_10": exact_checks},
+        "delete": {"rows": N - int(live.sum()), "recall_at_10": r_del,
+                   "recall_at_10_after_compact": r_comp},
+        "checkpoint": {"seconds": steps["checkpoint"]["seconds"], "bytes": file_bytes,
+                       "database_size": size, "open_s": steps["open"]["seconds"]},
+        "wal": {"inserts": N_WAL_INSERT, "deletes": N_WAL_DELETE, "bytes": wal_bytes,
+                "open_with_replay_s": steps["open with replay"]["seconds"]},
+    }
+
+
+# ----------------------------------------------------------------------
 # the builders
 
 
@@ -1198,6 +1531,9 @@ def main() -> int:
                          "index saved in FILE (built with auto and saved there first if FILE "
                          "is missing); prints its ms and a digest of its result and no result "
                          "line")
+    ap.add_argument("--database-only", action="store_true",
+                    help="run phase 7 (the Database) alone after the build, and print its "
+                         "summary and no result line")
     ap.add_argument("--gist", action="store_true",
                     help="also build and search the 1,000,000 x 960 cosine arm (made on the "
                          "card; adds minutes)")
@@ -1242,6 +1578,14 @@ def main() -> int:
         return k2_only(dev, vecs, queries, smi, np.random.default_rng(args.seed + 1))
     if args.beam_serving:
         return beam_serving(dev, vecs, queries, smi, args.beam_serving)
+    out_dir = args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces")
+    if args.database_only:
+        launches = {k: 0 for k in csrc.KERNELS}
+        summary = database_phase(args.seed, dev, smi, vecs, queries, centers, launches,
+                                 out_dir)
+        log("database: " + json.dumps(summary))
+        log(f"database launches: {launches}")
+        return 0
 
     # ---- the main path begins with CREATE INDEX: the bulk build with
     # `auto` (on the card the exact builder in its hybrid mode), before the
@@ -1355,7 +1699,6 @@ def main() -> int:
         f"recall@10 search ef={EF} {r_graph:.4f} (the same corpus built by the native builder: "
         f"{NATIVE_RECALL})")
     # where the time goes: one batch of each serving path under the profiler
-    out_dir = args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces")
     profiles = {
         "scan": profile_batch("scan_search k=10", lambda qb: idx.scan_search(qb, K), q,
                               scan_ms, out_dir),
@@ -1409,7 +1752,11 @@ def main() -> int:
     log("builds: " + json.dumps(builds))
     results["native_segmin"]["build_shape"] = builds["iid"]["k2_build_shape"]
 
-    # ---- phase 7: the kernel table and the last line
+    # ---- phase 7: the Database, through SQL
+    database = database_phase(args.seed, dev, smi, vecs, queries, centers, launches, out_dir)
+    log("database: " + json.dumps(database))
+
+    # ---- phase 8: the kernel table and the last line
     meta = {
         "gather_distances": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:142"),
         "native_segmin": ("vss_tpu_torch/csrc/scan.cu", "vss_tpu/ops/scan.py:78"),

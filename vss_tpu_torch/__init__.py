@@ -2,7 +2,8 @@
 
 A second package beside `vss_tpu` (the JAX reference, which it never
 imports); this file reproduces `vss_tpu/__init__.py` for the ported
-modules: the serving path and the write path of `HNSWIndex`. Plain
+modules: `HNSWIndex` (serving, writes, builds), storage (checkpoints,
+the WAL, the block store) and the query layer with its SQL front end. Plain
 tensor code is PyTorch; every TPU kernel on the ported
 path is a hand-written CUDA kernel for sm_90a under `csrc/`, built with
 nvcc at first use, with a plain PyTorch version beside it for CPU
@@ -10,7 +11,12 @@ tensors. Entry points run on the CUDA device unless `device="cpu"` is
 passed.
 
     import numpy as np
-    from vss_tpu_torch import HNSWConfig, HNSWIndex
+    from vss_tpu_torch import Database, HNSWConfig, HNSWIndex
+
+    db = Database()                       # on the GPU; Database(device="cpu")
+    db.create_table("items", {"id": np.arange(n), "vec": vectors})
+    db.sql("CREATE INDEX idx ON items USING HNSW (vec) WITH (metric='l2sq')")
+    db.sql("SELECT id FROM items ORDER BY array_distance(vec, [...]::FLOAT[128]) LIMIT 10")
 
     idx = HNSWIndex.build(vectors, HNSWConfig(dims=128, storage_dtype="int8"),
                           method="native")
@@ -29,7 +35,31 @@ torch.backends.cudnn.allow_tf32 = False
 
 from vss_tpu_torch.index import HNSWConfig, HNSWIndex  # noqa: E402
 from vss_tpu_torch.ops import Metric  # noqa: E402
+from vss_tpu_torch.query import (  # noqa: E402
+    BinderError,
+    Database,
+    Query,
+    Table,
+    col,
+    const,
+    fn,
+    vss_join,
+    vss_match,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["HNSWConfig", "HNSWIndex", "Metric"]
+__all__ = [
+    "Database",
+    "Table",
+    "Query",
+    "HNSWIndex",
+    "HNSWConfig",
+    "Metric",
+    "BinderError",
+    "col",
+    "const",
+    "fn",
+    "vss_join",
+    "vss_match",
+]

@@ -1,7 +1,8 @@
 """Native components: build at first use, load with ctypes, count launches.
 
-Reproduces `vss_tpu/csrc/__init__.py`. The host-side HNSW builder
-(`hnsw_builder.cpp`, copied unchanged) is compiled with g++; each CUDA
+Reproduces `vss_tpu/csrc/__init__.py`. The host-side HNSW builder and
+the linked-block store (`hnsw_builder.cpp`, `blockstore.cpp`, copied
+from the JAX package) are compiled with g++; each CUDA
 source (`*.cu`) is compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface. Everything lands in `vss_tpu_torch/_build/`,
 never next to the sources, and is rebuilt only when a source is newer
@@ -9,7 +10,8 @@ than its library.
 
 Every CUDA entry point returns `cudaGetLastError()` after its launch;
 `Kernel.launch` raises on a nonzero code and counts successful launches
-in `Kernel.launches`, a plain integer.
+in `Kernel.launches`, a plain integer, under a lock of its own so that
+queries run from several threads count every launch.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 # library name -> source file under csrc/
 SOURCES = {
     "hnsw_builder": "hnsw_builder.cpp",
+    "blockstore": "blockstore.cpp",
     "gather": "gather.cu",
     "scan": "scan.cu",
     "topk": "topk.cu",
@@ -164,6 +167,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fn = None
 
     def _entry(self):
@@ -203,7 +207,8 @@ class Kernel:
                 f"{self.name}: CUDA launch failed ({rc}: "
                 f"{self._err(rc).decode()})"
             )
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def operand(t):
