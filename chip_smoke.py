@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --gist     # and the 1,000,000 x 960 cosine arm
+    python3 chip_smoke.py --sharded-only   # phase 8 (the sharded index) alone
 
 Phases, each of which fails the run (nonzero exit) on any fault:
 
@@ -69,7 +70,20 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     distances bit-equal; the WAL: 1,024 inserts and 1,000 deletes, the
     database dropped without a checkpoint and reopened, every insert
     found at k=1 and no delete returned;
- 8. print the kernel table as one JSON line, then
+ 8. the sharded index (`vss_tpu_torch.parallel`) on 4 slots of the one
+    card, at the flagship's width: the 1,000,000 x 128 int8 corpus built
+    with `ShardedHNSWIndex.build` (`auto`: the bulk builder per shard),
+    the 2,048 queries through `search` (k=10, ef=64, with the per-shard ef
+    and with the full beam), `scan_search` and a filter mask that allows
+    half the rows, scored against phase 4's oracle and the filtered
+    oracle; the per-shard counters; insert 32,768 rows, delete `id % 5 =
+    0`, compact; a forced rebalance at 65,536 rows; save and load,
+    bit-equal; a `Database` with a sharded index (SQL equal to the direct
+    calls, a `.vssdb` CHECKPOINT and Database.open, bit-equal, and `CREATE
+    INDEX ... WITH (sharded = TRUE)` on 65,536 rows); two processes of 2
+    slots each over gloo (NCCL refuses two ranks on one GPU), equal to
+    one process; `dryrun_multichip` over the visible cards;
+ 9. print the kernel table as one JSON line, then
     {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA device and the rest of the repository beside it: without
@@ -132,6 +146,10 @@ N_BEAM_SMALL = 6000
 N_SQL_SCAN, N_COST_SMALL, N_WAL_INSERT, N_WAL_DELETE = 64, 65_536, 1024, 1000
 # rows of the corpus `calibrate()` measures its rates on
 N_CALIBRATE = 1 << 18
+# the sharded phase: slots on the one card, rows of the multi-process run
+# and of the SQL `CREATE INDEX ... WITH (sharded = TRUE)`, rows of the
+# forced rebalance, each rank's time limit
+SHARDS, N_MP, N_REBALANCE, MP_TIMEOUT_S = 4, 65_536, 65_536, 300
 
 
 def log(*a):
@@ -1305,6 +1323,425 @@ def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) ->
 
 
 # ----------------------------------------------------------------------
+# phase 8: the sharded index
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mp_worker(rank: int, port: int, data_path: str, out_path: str) -> int:
+    """One rank of the multi-process run (`--mp-worker`): 2 slots on
+    cuda:0, joined with the other rank over gloo, the sharded build of the
+    rows in `data_path` and its search and scan over the queries there;
+    the ids and distances go to `out_path`."""
+    import torch.distributed as dist
+
+    from vss_tpu_torch import HNSWConfig
+    from vss_tpu_torch.parallel import Mesh, ShardedHNSWIndex, multihost
+
+    dev = torch.device(DEVICE)
+    # NCCL refuses two ranks on one GPU ("duplicate GPU"): the merged lists
+    # travel over gloo, through host memory
+    mesh = multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                                local_slots=Mesh([dev] * (SHARDS // 2)), timeout_s=MP_TIMEOUT_S)
+    data = np.load(data_path)
+    idx = ShardedHNSWIndex.build(data["vecs"], HNSWConfig(dims=D, metric="l2sq",
+                                                          storage_dtype="int8"), mesh)
+    q_all = torch.from_numpy(data["queries"]).to(dev)
+    s_d, s_i = search_batches(lambda qb: idx.search(qb, K, ef=EF), q_all)
+    c_d, c_i = search_batches(lambda qb: idx.scan_search(qb, K), q_all)
+    np.savez(out_path, search_ids=s_i, search_d=s_d, scan_ids=c_i, scan_d=c_d,
+             owners=np.asarray(mesh.owners), local=np.asarray(multihost.local_shard_indices(mesh)))
+    log(f"rank {rank}: backend {dist.get_backend()}, slots {[str(d) for d in mesh.devices]}, "
+        f"owners {list(mesh.owners)}, local shards {multihost.local_shard_indices(mesh)}")
+    dist.destroy_process_group()
+    return 0
+
+
+def search_batches(fn, queries, batch=BATCH):
+    """fn over the query batches -> (dists, ids) as numpy."""
+    outs = [fn(queries[s:s + batch]) for s in range(0, queries.shape[0], batch)]
+    return [torch.cat([o[i] for o in outs]).cpu().numpy() for i in (0, 1)]
+
+
+def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_dir) -> dict:
+    """Phase 8: `ShardedHNSWIndex` on SHARDS slots of one device at the
+    flagship's width: the sharded bulk build (`auto`), `search` with and
+    without the per-shard ef, `scan_search`, a filter mask, the per-shard
+    counters; insert, delete, compact, a forced rebalance (at
+    N_REBALANCE rows), save and load; the Database with a sharded index
+    (SQL, `.vssdb` CHECKPOINT and Database.open, `CREATE INDEX ... WITH
+    (sharded = TRUE)` on N_MP rows); two processes of SHARDS // 2 slots
+    each over gloo, equal to one process; `dryrun_multichip`. Each step
+    has its launch counts zeroed before it and read after it (and added to
+    `launches`); each check fails the run."""
+    import gc
+    import shutil
+    import tempfile
+
+    from vss_tpu_torch import Database, HNSWConfig, csrc
+    from vss_tpu_torch.entry import dryrun_multichip
+    from vss_tpu_torch.ops import bruteforce_topk
+    from vss_tpu_torch.parallel import Mesh, ShardedHNSWIndex, make_mesh
+
+    t_phase = time.perf_counter()
+    steps, paths = {}, {}
+    nq = queries.shape[0]
+    x = torch.from_numpy(vecs).to(dev)
+    q_all = torch.from_numpy(queries).to(dev)
+    mesh = Mesh([dev] * SHARDS)
+    cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
+    tmp = tempfile.mkdtemp(prefix="vss_sharded_")
+
+    def step(label, fn):
+        csrc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in csrc.KERNELS.items() if v.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        steps[label] = {"seconds": seconds, "launches": counts}
+        log(f"sharded {label}: {seconds:.3f} s, launches {counts}")
+        return out
+
+    def need(label, *kernels):
+        for kname in kernels:
+            if steps[label]["launches"].get(kname, 0) <= 0:
+                fail(f"sharded {label}: kernel {kname} was not launched")
+
+    def run_path(label, fn, kernels, n_rows):
+        """One serving path over the query batches: ms per batch, qps,
+        launches; its outputs checked for shape, range and order."""
+        csrc.reset_launch_counts()
+        (dd, ii), times = timed_batches(fn, q_all)
+        counts = {k: v.launches for k, v in csrc.KERNELS.items() if v.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        ms = sum(times) / len(times)
+        paths[label] = {"ms_per_batch": ms, "qps": BATCH / ms * 1e3, "launches": counts}
+        log(f"sharded {label}: {ms:.3f} ms/batch of {BATCH} (batches "
+            f"{[round(t, 3) for t in times]}), {NQ / (sum(times) / 1e3):.1f} qps, "
+            f"launches {counts}")
+        for kname in kernels:
+            if counts.get(kname, 0) <= 0:
+                fail(f"sharded {label}: kernel {kname} was not launched")
+        if dd.shape != (nq, K) or ii.shape != (nq, K):
+            fail(f"sharded {label}: shapes {dd.shape} {ii.shape}")
+        if not np.isfinite(dd).all() or (ii < 0).any() or (ii >= n_rows).any():
+            fail(f"sharded {label}: non-finite distances or ids out of range")
+        if (np.diff(dd, axis=1) < 0).any():
+            fail(f"sharded {label}: distances not ascending")
+        return dd, ii
+
+    def oracle(xs, valid=None):
+        return batched_ids(lambda qb: bruteforce_topk(qb, xs, K, "l2sq", valid_mask=valid,
+                                                      device=dev), q_all)
+
+    graph_kernels = ("beam_search", "gather_distances", "gather_rows")
+
+    # ---- the sharded bulk build
+    idx = step("build", lambda: ShardedHNSWIndex.build(vecs, cfg, mesh))
+    need("build", "gather_rows", "scan_segmin")  # K5 in refine / back-links, K3 in repair
+    if idx.count != N or idx.n_shards != SHARDS or sum(idx.next_slot) != N:
+        fail(f"sharded build: {idx.count} rows on {idx.n_shards} shards {idx.next_slot}")
+    build_s = steps["build"]["seconds"]
+    log(f"sharded build: {N} rows on {SHARDS} slots of {dev}, {build_s:.2f} s "
+        f"({N / build_s:.0f} rows/s), shards {idx.next_slot}")
+
+    # ---- serving: the per-shard ef, the full beam, the scan, a filter
+    idx.search(q_all[:BATCH], K, ef=EF)  # warm-up
+    idx.scan_search(q_all[:BATCH], K)
+    ef_shard = idx.shard_ef(EF, K)
+    _, g_ids = run_path(f"search k={K} ef={EF} (ef_shard {ef_shard})",
+                        lambda qb: idx.search(qb, K, ef=EF), graph_kernels, N)
+    _, f_ids = run_path(f"search k={K} ef={EF} scale_ef=False",
+                        lambda qb: idx.search(qb, K, ef=EF, scale_ef=False), graph_kernels, N)
+    s_d, s_ids = run_path(f"scan_search k={K}", lambda qb: idx.scan_search(qb, K),
+                          ("native_segmin",), N)
+    srow = idx.slot_rowid_array()
+    if srow.shape != (SHARDS, idx.graphs[0].capacity):
+        fail(f"slot_rowid_array is {srow.shape}")
+    mask = torch.from_numpy((srow % 2 == 0) & (srow >= 0)).to(dev)
+    _, gm_ids = run_path("search, filter id % 2 = 0", lambda qb: idx.search(
+        qb, K, ef=EF, filter_mask=mask), graph_kernels, N)
+    _, sm_ids = run_path("scan_search, filter id % 2 = 0", lambda qb: idx.scan_search(
+        qb, K, filter_mask=mask), ("native_segmin",), N)
+    even = torch.from_numpy(np.arange(N) % 2 == 0).to(dev)
+    truth_even = oracle(x, even)
+    if (gm_ids % 2).any() or (sm_ids % 2).any():
+        fail("a filtered search returned a row the filter excludes")
+    rec = {"search": recall(g_ids, truth), "search_full_beam": recall(f_ids, truth),
+           "scan": recall(s_ids, truth), "search_filtered": recall(gm_ids, truth_even),
+           "scan_filtered": recall(sm_ids, truth_even)}
+    same = s_ids[:, 0] == truth[:, 0]
+    ref = ((vecs[truth[:64, 0]].astype(np.float64) - queries[:64].astype(np.float64)) ** 2).sum(1)
+    scan_rel = float(np.abs(s_d[:64, 0] - ref).max() / ref.max()) if same[:64].all() else None
+    log(f"sharded recall@10: {json.dumps(rec)}; scan top-1 distance vs float64 host reference "
+        f"(64 queries): max rel err {scan_rel}")
+    for key, bar in (("search", 0.85), ("search_full_beam", 0.85), ("scan", 0.99),
+                     ("search_filtered", 0.85), ("scan_filtered", 0.99)):
+        if rec[key] < bar:
+            fail(f"sharded recall@10 {key} {rec[key]} < {bar}")
+    if scan_rel is None or scan_rel > 1e-4:
+        fail(f"sharded scan distances disagree with the float64 reference ({scan_rel})")
+    evals = {}
+    for label, kw in (("ef_shard", {}), ("full beam", {"scale_ef": False})):
+        _, _, st = idx.search(q_all[:BATCH], K, ef=EF, with_stats=True, **kw)
+        evals[label] = {"ef_shard": st["ef_shard"],
+                        "per_shard_evals": [int(v) for v in st["per_shard_evals"]]}
+    log(f"sharded per-shard distance evaluations, one batch of {BATCH}: {json.dumps(evals)}")
+    profiles = {
+        "search": profile_batch("sharded search k=10 ef=64", lambda qb: idx.search(
+            qb, K, ef=EF), q_all[:BATCH], paths[f"search k={K} ef={EF} (ef_shard {ef_shard})"][
+                "ms_per_batch"], out_dir),
+        "scan": profile_batch("sharded scan_search k=10", lambda qb: idx.scan_search(qb, K),
+                              q_all[:BATCH], paths[f"scan_search k={K}"]["ms_per_batch"],
+                              out_dir),
+    }
+
+    # ---- writes: insert, delete, compact
+    wrng = np.random.default_rng(seed + 4)
+    new_vecs, _, _ = sift_like(wrng, N_INSERT, 0, D, centers)
+    step(f"insert {N_INSERT} rows", lambda: idx.insert(new_vecs, np.arange(N, N + N_INSERT)))
+    need(f"insert {N_INSERT} rows", *graph_kernels)
+    n1 = N + N_INSERT
+    if idx.count != n1 or sum(idx.next_slot) != n1:
+        fail(f"after the insert: {idx.count} rows, next slots {idx.next_slot}")
+    ins_s = steps[f"insert {N_INSERT} rows"]["seconds"]
+    probe = wrng.choice(N_INSERT, min(NQ, N_INSERT), replace=False)
+    _, found = search_batches(lambda qb: idx.search(qb, 1, ef=EF),
+                              torch.from_numpy(new_vecs[probe]).to(dev))
+    self_hit = float((found[:, 0] == N + probe).mean())
+    log(f"sharded insert: {N_INSERT / ins_s:.1f} rows/s, capacity per shard "
+        f"{idx.graphs[0].capacity}; {self_hit:.4f} of {probe.size} inserted rows find "
+        f"themselves at k=1")
+    if self_hit < 0.9:
+        fail(f"only {self_hit} of the inserted rows find themselves")
+    x_all = torch.cat([x, torch.from_numpy(new_vecs).to(dev)])
+    gone = np.flatnonzero(np.arange(n1) % 5 == 0)
+    n_gone = step("delete id % 5 = 0", lambda: idx.delete(gone))
+    live = np.arange(n1) % 5 != 0
+    if n_gone != gone.size or idx.count != int(live.sum()):
+        fail(f"after the delete: {n_gone} deleted, {idx.count} rows")
+    live_truth = oracle(x_all, torch.from_numpy(live).to(dev))
+    _, t_ids = run_path("search with tombstones", lambda qb: idx.search(qb, K, ef=EF),
+                        graph_kernels, n1)
+    counts_before = idx._live_counts()
+    step("compact", idx.compact)
+    need("compact", "gather_rows")
+    if idx.deleted_count != 0 or idx.count != int(live.sum()) or \
+            idx.next_slot != [int(c) for c in counts_before]:
+        fail(f"after compact: {idx.deleted_count} tombstones, {idx.count} rows, next slots "
+             f"{idx.next_slot} (live per shard {counts_before.tolist()})")
+    _, c_ids = run_path("search after compact", lambda qb: idx.search(qb, K, ef=EF),
+                        graph_kernels, n1)
+    _, cs_ids = run_path("scan_search after compact", lambda qb: idx.scan_search(qb, K),
+                         ("native_segmin",), n1)
+    for label, ids_ in (("tombstones", t_ids), ("compact", c_ids), ("compact scan", cs_ids)):
+        if not live[ids_].all():
+            fail(f"sharded {label}: a deleted row came back")
+    rec.update(with_tombstones=recall(t_ids, live_truth), after_compact=recall(c_ids, live_truth),
+               scan_after_compact=recall(cs_ids, live_truth))
+    log(f"sharded writes: recall@10 with {gone.size} tombstones {rec['with_tombstones']:.4f}, "
+        f"after compact {rec['after_compact']:.4f}, scan {rec['scan_after_compact']:.4f}")
+    if min(rec["with_tombstones"], rec["after_compact"]) < 0.85:
+        fail("sharded recall@10 after the writes < 0.85")
+    if rec["scan_after_compact"] < 0.99:
+        fail("sharded scan recall@10 after the writes < 0.99")
+
+    # ---- save and load (the directory form): bit-equal answers
+    ckpt = os.path.join(tmp, "index")
+    step("save", lambda: idx.save(ckpt))
+    loaded = step("load", lambda: ShardedHNSWIndex.load(ckpt, Mesh([dev] * SHARDS)))
+    for label, fn in (("search", lambda i: lambda qb: i.search(qb, K, ef=EF)),
+                      ("scan", lambda i: lambda qb: i.scan_search(qb, K))):
+        a_d, a_i = search_batches(fn(idx), q_all)
+        b_d, b_i = search_batches(fn(loaded), q_all)
+        if not (np.array_equal(a_i, b_i) and np.array_equal(a_d.view(np.int32),
+                                                            b_d.view(np.int32))):
+            fail(f"sharded {label}: ids or distances differ across save and load")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    log(f"sharded save {steps['save']['seconds']:.2f} s ({ckpt_bytes} bytes), load "
+        f"{steps['load']['seconds']:.2f} s: search and scan bit-equal")
+    del idx, loaded, x_all
+    gc.collect()
+
+    # ---- a forced rebalance, at N_REBALANCE rows: most of shard 0 deleted
+    small = ShardedHNSWIndex.build(vecs[:N_REBALANCE], cfg, mesh)
+    dead = np.arange(0, N_REBALANCE, SHARDS)[: 3 * N_REBALANCE // (4 * SHARDS)]
+    small.delete(dead)
+    skew = small._live_counts().tolist()
+    done = step("rebalance", small.rebalance)
+    need("rebalance", "gather_rows")
+    after = small._live_counts()
+    if not done or after.max() - after.min() > 1 or small.deleted_count != 0:
+        fail(f"rebalance: ran {done}, live per shard {skew} -> {after.tolist()}")
+    small_live = np.ones(N_REBALANCE, bool)
+    small_live[dead] = False
+    r_ids = batched_ids(lambda qb: small.search(qb, K, ef=EF), q_all)
+    if not small_live[r_ids].all():
+        fail("rebalance: a deleted row came back")
+    rec["after_rebalance"] = recall(r_ids, oracle(x[:N_REBALANCE],
+                                                  torch.from_numpy(small_live).to(dev)))
+    log(f"sharded rebalance of {N_REBALANCE} rows: live per shard {skew} -> "
+        f"{after.tolist()} in {steps['rebalance']['seconds']:.2f} s, recall@10 "
+        f"{rec['after_rebalance']:.4f}")
+    if rec["after_rebalance"] < 0.85:
+        fail(f"recall@10 after the rebalance {rec['after_rebalance']} < 0.85")
+    del small
+    gc.collect()
+
+    # ---- the Database: a sharded index on the flagship table
+    db = Database(device=dev)
+    ids = np.arange(N, dtype=np.int64)
+    step("db create_table", lambda: db.create_table("items", {"id": ids, "vec": vecs}))
+    step("db create_index", lambda: db.create_hnsw_index(
+        "sidx", "items", "vec", metric="l2sq", storage="int8", sharded=True,
+        mesh=make_mesh(SHARDS, device=dev)))
+    need("db create_index", "gather_rows", "scan_segmin")
+    sindex = db.indexes["sidx"].index
+    if sindex.n_shards != SHARDS or sindex.count != N:
+        fail(f"the SQL database's sharded index: {sindex.n_shards} shards, {sindex.count} rows")
+    db.create_table("queries", {"qid": np.arange(nq, dtype=np.int64), "qvec": queries})
+    one_sql = f"SELECT id FROM items ORDER BY array_distance(vec, {vec_sql(queries[0])}) LIMIT {K}"
+    if "HNSW_INDEX_SCAN" not in db.sql("EXPLAIN " + one_sql)["explain"][0]:
+        fail("EXPLAIN of a top-k over the sharded index shows no HNSW_INDEX_SCAN")
+    db.sql(one_sql)  # warm-up
+    one = step("db hnsw_index_scan", lambda: db.sql(one_sql))
+    need("db hnsw_index_scan", "beam_search")
+    _, want = sindex.search(queries[:1], K, ef=EF)
+    if not np.array_equal(np.asarray(one["id"], np.int64), want[0].cpu().numpy()):
+        fail(f"HNSW_INDEX_SCAN over the sharded index: {list(one['id'])} != index.search")
+    join_sql = ("SELECT qid, id, array_distance(qvec, vec) AS dist FROM queries, LATERAL "
+                "(SELECT id, vec FROM items ORDER BY array_distance(queries.qvec, items.vec) "
+                f"LIMIT {K})")
+    if "HNSW_INDEX_JOIN" not in db.sql("EXPLAIN " + join_sql)["explain"][0]:
+        fail("EXPLAIN of the join over the sharded index shows no HNSW_INDEX_JOIN")
+    db.sql(join_sql)  # warm-up
+    res = step("db hnsw_index_join", lambda: db.sql(join_sql))
+    need("db hnsw_index_join", *graph_kernels)
+    j_ids, j_d = join_ids(res, "id", "qid", nq, K, "dist")
+    _, want = sindex.search(queries, K, ef=EF)
+    if not np.array_equal(j_ids, want.cpu().numpy().astype(np.int64)):
+        fail("HNSW_INDEX_JOIN over the sharded index differs from one index.search call")
+    rec["db_join"] = recall(j_ids, truth)
+    if rec["db_join"] < 0.85:
+        fail(f"HNSW_INDEX_JOIN recall@10 {rec['db_join']} < 0.85")
+    path = os.path.join(tmp, "sharded.vssdb")
+    step("db checkpoint", lambda: db.sql(f"CHECKPOINT '{path}'"))
+    file_bytes = os.path.getsize(path)
+    del db, sindex
+    gc.collect()
+    db = step("db open", lambda: Database.open(path, device=dev))
+    if db.indexes["sidx"].index.n_shards != SHARDS:
+        fail("Database.open did not restore the sharded index's shards")
+    res = step("db join after open", lambda: db.sql(join_sql))
+    o_ids, o_d = join_ids(res, "id", "qid", nq, K, "dist")
+    if not (np.array_equal(o_ids, j_ids) and np.array_equal(o_d.view(np.int32),
+                                                            j_d.view(np.int32))):
+        fail("the sharded join's ids or distances differ across CHECKPOINT and Database.open")
+    log(f"sharded Database: CREATE INDEX {steps['db create_index']['seconds']:.2f} s, one query "
+        f"{steps['db hnsw_index_scan']['seconds'] * 1e3:.3f} ms, the {nq}-query join "
+        f"{steps['db hnsw_index_join']['seconds'] * 1e3:.3f} ms (recall@10 "
+        f"{rec['db_join']:.4f}), CHECKPOINT {steps['db checkpoint']['seconds']:.2f} s "
+        f"({file_bytes} bytes), open {steps['db open']['seconds']:.2f} s: bit-equal")
+    del db
+    gc.collect()
+    # SQL CREATE INDEX ... WITH (sharded = TRUE): one slot per visible card
+    db = Database(device=dev)
+    db.create_table("small", {"id": ids[:N_MP], "vec": vecs[:N_MP]})
+    db.create_table("queries", {"qid": np.arange(nq, dtype=np.int64), "qvec": queries})
+    step("db sql create_index sharded", lambda: db.sql(
+        "CREATE INDEX s2 ON small USING HNSW (vec) WITH (metric='l2sq', storage='int8', "
+        "sharded=TRUE)"))
+    n_slots = db.hnsw_index_info()[0]["n_shards"]
+    if n_slots != make_mesh(device=dev).size:
+        fail(f"CREATE INDEX ... WITH (sharded = TRUE) took {n_slots} slots")
+    res = db.sql(join_sql.replace("FROM items", "FROM small").replace("items.vec", "small.vec"))
+    s_ids, _ = join_ids(res, "id", "qid", nq, K)
+    rec["sql_sharded_small"] = recall(s_ids, oracle(x[:N_MP]))
+    log(f"CREATE INDEX ... WITH (sharded = TRUE) on {N_MP} rows: {n_slots} slot(s), "
+        f"{steps['db sql create_index sharded']['seconds']:.2f} s, join recall@10 "
+        f"{rec['sql_sharded_small']:.4f}")
+    if rec["sql_sharded_small"] < 0.85:
+        fail(f"recall@10 of the SQL-created sharded index {rec['sql_sharded_small']} < 0.85")
+    del db
+    gc.collect()
+
+    # ---- two processes, SHARDS // 2 slots each, against one process
+    data_path = os.path.join(tmp, "mp.npz")
+    np.savez(data_path, vecs=vecs[:N_MP], queries=queries)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    port = free_port()
+    outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+    log(f"multi-process: 2 ranks of {SHARDS // 2} slots on {dev}, backend gloo (NCCL refuses two "
+        f"ranks on one GPU), {N_MP} rows")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker",
+                               str(r), str(port), data_path, outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=MP_TIMEOUT_S)
+            for line in out.strip().splitlines()[-3:]:
+                log(f"  rank {r}: {line}")
+            if p.returncode != 0:
+                fail(f"multi-process rank {r} exited with {p.returncode}:\n{out[-3000:]}")
+    except subprocess.TimeoutExpired:
+        fail(f"a multi-process rank ran past {MP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    mp_s = time.perf_counter() - t0
+    one = step("single-process 4-slot build", lambda: ShardedHNSWIndex.build(
+        vecs[:N_MP], cfg, mesh))
+    want = {"search": search_batches(lambda qb: one.search(qb, K, ef=EF), q_all),
+            "scan": search_batches(lambda qb: one.scan_search(qb, K), q_all)}
+    ranks = [np.load(o) for o in outs]
+    for r, got in enumerate(ranks):
+        if got["owners"].tolist() != [0] * (SHARDS // 2) + [1] * (SHARDS // 2):
+            fail(f"rank {r}: mesh owners {got['owners'].tolist()}")
+        for label in ("search", "scan"):
+            if not np.array_equal(got[f"{label}_ids"], want[label][1]):
+                fail(f"multi-process rank {r}: {label} ids differ from the single process")
+            if not np.allclose(got[f"{label}_d"], want[label][0], rtol=1e-5, atol=1e-3):
+                fail(f"multi-process rank {r}: {label} distances differ from the single process")
+    mp_equal_d = all(np.array_equal(ranks[0][f"{lb}_d"], ranks[1][f"{lb}_d"])
+                     for lb in ("search", "scan"))
+    rec["multiprocess_search"] = recall(ranks[0]["search_ids"], oracle(x[:N_MP]))
+    log(f"multi-process: both ranks' ids equal each other and the single process "
+        f"(distances bit-equal across ranks: {mp_equal_d}); {mp_s:.1f} s for both ranks "
+        f"(start, build, {nq} queries), recall@10 {rec['multiprocess_search']:.4f}")
+    del one
+    gc.collect()
+
+    # ---- the multi-device dry run of entry.py, on the visible cards
+    step("dryrun_multichip", lambda: dryrun_multichip(torch.cuda.device_count()))
+    shutil.rmtree(tmp)
+    phase_s = time.perf_counter() - t_phase
+    log(f"sharded phase: {phase_s:.1f} s")
+    return {
+        "card": smi, "rows": N, "slots": [str(d) for d in mesh.devices], "queries": nq,
+        "seconds": phase_s, "build_s": build_s, "paths": paths, "recall_at_10": rec,
+        "per_shard_evals": evals, "profiles": profiles, "steps": steps,
+        "insert": {"rows": N_INSERT, "rows_per_s": N_INSERT / ins_s, "self_hit_at_1": self_hit},
+        "checkpoint_bytes": {"directory": ckpt_bytes, "vssdb": file_bytes},
+        "multiprocess": {"ranks": 2, "backend": "gloo", "rows": N_MP, "seconds": mp_s},
+    }
+
+
+# ----------------------------------------------------------------------
 # the builders
 
 
@@ -1534,6 +1971,11 @@ def main() -> int:
     ap.add_argument("--database-only", action="store_true",
                     help="run phase 7 (the Database) alone after the build, and print its "
                          "summary and no result line")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run phase 8 (the sharded index) alone, with its own exact oracle, and "
+                         "print its summary and no result line")
+    ap.add_argument("--mp-worker", nargs=4, metavar=("RANK", "PORT", "DATA", "OUT"),
+                    default=None, help=argparse.SUPPRESS)
     ap.add_argument("--gist", action="store_true",
                     help="also build and search the 1,000,000 x 960 cosine arm (made on the "
                          "card; adds minutes)")
@@ -1545,6 +1987,9 @@ def main() -> int:
     from vss_tpu_torch import HNSWConfig, HNSWIndex, csrc
     from vss_tpu_torch.ops import bruteforce_topk
 
+    if args.mp_worker:
+        rank, port, data_path, out_path = args.mp_worker
+        return mp_worker(int(rank), int(port), data_path, out_path)
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1585,6 +2030,17 @@ def main() -> int:
                                  out_dir)
         log("database: " + json.dumps(summary))
         log(f"database launches: {launches}")
+        return 0
+    if args.sharded_only:
+        launches = {k: 0 for k in csrc.KERNELS}
+        q_all = torch.from_numpy(queries).to(dev)
+        x = torch.from_numpy(vecs).to(dev)
+        truth = batched_ids(lambda qb: bruteforce_topk(qb, x, K, "l2sq", device=dev), q_all)
+        del x
+        summary = sharded_phase(args.seed, dev, smi, vecs, queries, truth, centers, launches,
+                                out_dir)
+        log("sharded: " + json.dumps(summary))
+        log(f"sharded launches: {launches}")
         return 0
 
     # ---- the main path begins with CREATE INDEX: the bulk build with
@@ -1756,7 +2212,11 @@ def main() -> int:
     database = database_phase(args.seed, dev, smi, vecs, queries, centers, launches, out_dir)
     log("database: " + json.dumps(database))
 
-    # ---- phase 8: the kernel table and the last line
+    # ---- phase 8: the sharded index
+    sharded = sharded_phase(args.seed, dev, smi, vecs, queries, gt_i, centers, launches, out_dir)
+    log("sharded: " + json.dumps(sharded))
+
+    # ---- phase 9: the kernel table and the last line
     meta = {
         "gather_distances": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:142"),
         "native_segmin": ("vss_tpu_torch/csrc/scan.cu", "vss_tpu/ops/scan.py:78"),

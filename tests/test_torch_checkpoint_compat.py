@@ -4,7 +4,8 @@ The shared `VSSTPU01` stream format, the database checkpoint (a directory
 or a `.vssdb` block file) and the write-ahead log are the state this
 slice carries: what `vss_tpu` (the JAX reference, on the CPU) writes,
 `vss_tpu_torch` (on `device="cpu"`) reads, and the reverse, with equal
-results. Index streams cover f32, bf16 and int8 with its f32 rerank tape,
+results, sharded indexes (`parallel/`) on four shard slots included.
+Index streams cover f32, bf16 and int8 with its f32 rerank tape,
 through `load_index` and the memory-mapped `view_index`; both the graph
 `search` and the exact `scan_search` must return the saver's ids, with
 distances within 1e-5 of the terms' magnitude. The vectors are integers
@@ -15,8 +16,10 @@ import pytest
 import torch
 
 import vss_tpu
+import vss_tpu.parallel
 import vss_tpu.storage as jstorage
 import vss_tpu_torch
+import vss_tpu_torch.parallel
 import vss_tpu_torch.storage as tstorage
 from vss_tpu.index import HNSWConfig as JConfig
 from vss_tpu.index.dense import HNSWIndex as JIndex
@@ -129,6 +132,10 @@ OPEN = {
     "jax": lambda path: vss_tpu.Database.open(path),
     "port": lambda path: vss_tpu_torch.Database.open(path, device="cpu"),
 }
+MESH = {
+    "jax": lambda: vss_tpu.parallel.make_mesh(4),
+    "port": lambda: vss_tpu_torch.parallel.make_mesh(4, device="cpu"),
+}
 JOIN = ("SELECT qid, id, array_distance(qvec, vec) AS d FROM queries, LATERAL "
         "(SELECT id, vec FROM items ORDER BY array_distance(queries.qvec, items.vec) "
         "LIMIT 10)")
@@ -159,14 +166,18 @@ def _same_results(a, b):
                 np.testing.assert_array_equal(x, y)
 
 
-def _make_db(kind, vecs, queries, storage):
+def _make_db(kind, vecs, queries, storage, sharded=False):
     db = PACKAGES[kind]()
     db.create_table("items", {"id": np.arange(N, dtype=np.int64), "vec": vecs,
                               "name": np.asarray([f"r{i}" for i in range(N)], object)})
     db.create_table("queries", {"qid": np.arange(len(queries), dtype=np.int64),
                                 "qvec": queries})
     db.sql("SET hnsw_enable_experimental_persistence = true")
-    db.sql(f"CREATE INDEX idx ON items USING HNSW (vec) WITH (storage = '{storage}')")
+    if sharded:
+        db.create_hnsw_index("idx", "items", "vec", storage=storage, sharded=True,
+                             mesh=MESH[kind]())
+    else:
+        db.sql(f"CREATE INDEX idx ON items USING HNSW (vec) WITH (storage = '{storage}')")
     db.sql("DELETE FROM items WHERE id < 30")
     return db
 
@@ -185,6 +196,30 @@ def test_database_checkpoint_opens_in_the_other(data, tmp_path, writer, reader, 
     db.checkpoint(path)
     other = OPEN[reader](path)
     assert not other.indexes["idx"].loaded
+    _same_results(_run(other, queries), want)
+    plan = other.sql("EXPLAIN " + JOIN)["explain"][0]
+    assert plan == db.sql("EXPLAIN " + JOIN)["explain"][0]
+    assert "HNSW_INDEX_JOIN" in plan
+
+
+@pytest.mark.parametrize("fmt", ["dir", "vssdb"])
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
+def test_sharded_database_checkpoint_opens_in_the_other(data, tmp_path, writer, reader, fmt):
+    """A 4-shard int8 index: the directory form (`index_idx.sharded/`,
+    one stream per shard) and the block file's `index:idx:shard<s>`
+    streams, written by one package, open in the other on four slots with
+    the same answers."""
+    if fmt == "vssdb" and not blockstore_available():
+        pytest.skip("no C++ toolchain for the block store")
+    vecs, queries = data
+    db = _make_db(writer, vecs, queries, "int8", sharded=True)
+    want = _run(db, queries)
+    path = str(tmp_path / ("db.vssdb" if fmt == "vssdb" else "db"))
+    db.checkpoint(path)
+    other = OPEN[reader](path)
+    idx = other.indexes["idx"].index
+    assert idx.n_shards == 4 and idx.count == N - 30 and idx.deleted_count == 30
+    assert idx.rowid_to_loc == db.indexes["idx"].index.rowid_to_loc
     _same_results(_run(other, queries), want)
     plan = other.sql("EXPLAIN " + JOIN)["explain"][0]
     assert plan == db.sql("EXPLAIN " + JOIN)["explain"][0]

@@ -52,6 +52,10 @@ def test_port_has_modules():
     for module in ("functions", "ir", "table", "rewrite", "exec", "macros", "api", "cost",
                    "sql"):
         assert os.path.join("vss_tpu_torch", "query", f"{module}.py") in files
+    for module in ("mesh", "multihost", "sharded", "sharded_build", "__init__"):
+        assert os.path.join("vss_tpu_torch", "parallel", f"{module}.py") in files
+    assert os.path.join("vss_tpu_torch", "entry.py") in files
+    assert os.path.join("vss_tpu_torch", "utils", "datasets.py") in files
     assert os.path.join("vss_tpu_torch", "__main__.py") in files
     assert os.path.join("vss_tpu_torch", "testing", "sqllogic.py") in files
     assert os.path.exists(os.path.join(ROOT, "vss_tpu_torch", "csrc", "blockstore.cpp"))
@@ -78,7 +82,10 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "vss_tpu_torch.query.sql" in modules and "vss_tpu_torch.__main__" in modules
+    for m in ("vss_tpu_torch.query.sql", "vss_tpu_torch.__main__", "vss_tpu_torch.entry",
+              "vss_tpu_torch.parallel.sharded", "vss_tpu_torch.parallel.multihost",
+              "vss_tpu_torch.utils.datasets"):
+        assert m in modules
 
 
 @pytest.mark.parametrize("path", _port_files())

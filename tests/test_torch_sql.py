@@ -1,9 +1,10 @@
 """The SQL front end of vss_tpu_torch on the CPU.
 
 Ports `tests/test_sql.py` (20 tests), `tests/test_lateral.py` (10),
-`tests/test_fuzz.py`, `tests/test_misc_api.py::test_sql_table_functions`
-and `tests/test_bf16.py`'s `test_bf16_sql_and_persistence`,
-`test_bad_storage_option` and `test_int8_sql_option` to the port, each
+`tests/test_fuzz.py`, `tests/test_misc_api.py::test_sql_table_functions`,
+`tests/test_bf16.py`'s `test_bf16_sql_and_persistence`,
+`test_bad_storage_option` and `test_int8_sql_option`, and
+`tests/test_sharded.py::test_sharded_index_in_database` to the port, each
 file as a class of the same tests, on `Database(device="cpu")`.
 """
 import numpy as np
@@ -626,3 +627,61 @@ class TestStorageOptionsSQL:
                               "vec": rng.uniform(0, 255, (100, 8)).astype(np.float32)})
         db.sql("CREATE INDEX qi ON t USING HNSW (vec) WITH (storage = 'int8')")
         assert db.indexes["qi"].index.config.storage_dtype == "int8"
+
+
+class TestShardedIndexSQL:
+    """`tests/test_sharded.py::test_sharded_index_in_database` on the port.
+    The JAX package's default mesh has the 8 virtual devices of its test
+    harness; the port's default mesh has one slot per visible device of
+    the database's type (one on the CPU), so the 8-shard case passes
+    `make_mesh(8, device="cpu")` and the SQL form is checked apart."""
+
+    def test_sharded_index_in_database(self, rng, tmp_path):
+        from vss_tpu_torch import col, const, fn
+        from vss_tpu_torch.parallel import ShardedHNSWIndex, make_mesh
+        from vss_tpu_torch.storage.blockfile import blockstore_available
+
+        db = Database(device=CPU)
+        vecs = rng.standard_normal((400, 8)).astype(np.float32)
+        db.create_table("t", {"id": np.arange(400), "vec": vecs})
+        db.sql("CREATE INDEX si ON t USING HNSW (vec) WITH (sharded = TRUE)")
+        assert isinstance(db.indexes["si"].index, ShardedHNSWIndex)
+        assert db.hnsw_index_info()[0]["n_shards"] == make_mesh(device=CPU).size == 1
+        db.drop_index("si")
+        db.create_hnsw_index("si", "t", "vec", sharded=True, mesh=make_mesh(8, device=CPU))
+        vec_lit = "[" + ",".join(f"{x:.4f}" for x in vecs[7]) + "]"
+        exp = db.sql(f"EXPLAIN SELECT id FROM t ORDER BY array_distance(vec, {vec_lit}) LIMIT 1")
+        assert "HNSW_INDEX_SCAN" in exp["explain"][0]
+        r = db.sql(f"SELECT id FROM t ORDER BY array_distance(vec, {vec_lit}) LIMIT 1")
+        assert r["id"][0] == 7
+        # a pushed filter: the [S, cap] mask of the sharded index
+        r = db.sql(f"SELECT id FROM t WHERE id % 2 = 1 ORDER BY array_distance(vec, "
+                   f"{vec_lit}) LIMIT 5")
+        assert len(r["id"]) == 5 and all(int(i) % 2 == 1 for i in r["id"])
+        # DML maintenance through the sharded index
+        db.insert("t", {"id": [900], "vec": (vecs[:1] + 50.0)})
+        r = db.query("t").order_by(
+            fn("array_distance", col("vec"), const(vecs[0] + 50.0))
+        ).limit(1).select("id").execute()
+        assert r["id"][0] == 900
+        db.delete("t", [900])
+        # info + compact pragmas
+        info = db.hnsw_index_info()
+        assert info[0]["n_shards"] == 8
+        db.hnsw_compact_index("si")
+        # persistence: directory checkpoint
+        db.set_setting("hnsw_enable_experimental_persistence", True)
+        p = str(tmp_path / "sharded_db")
+        db.checkpoint(p)
+        db2 = Database.open(p, device=CPU)
+        assert db2.indexes["si"].index.n_shards == 8
+        r = db2.sql(f"SELECT id FROM t ORDER BY array_distance(vec, {vec_lit}) LIMIT 1")
+        assert r["id"][0] == 7
+        # single-file checkpoint too (if the toolchain is present)
+        if blockstore_available():
+            p2 = str(tmp_path / "sharded.vssdb")
+            db.checkpoint(p2)
+            db3 = Database.open(p2, device=CPU)
+            assert db3.indexes["si"].index.n_shards == 8
+            r = db3.sql(f"SELECT id FROM t ORDER BY array_distance(vec, {vec_lit}) LIMIT 1")
+            assert r["id"][0] == 7

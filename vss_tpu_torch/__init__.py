@@ -3,7 +3,8 @@
 A second package beside `vss_tpu` (the JAX reference, which it never
 imports); this file reproduces `vss_tpu/__init__.py` for the ported
 modules: `HNSWIndex` (serving, writes, builds), storage (checkpoints,
-the WAL, the block store) and the query layer with its SQL front end. Plain
+the WAL, the block store), the query layer with its SQL front end and
+the sharded index (`vss_tpu_torch.parallel`). Plain
 tensor code is PyTorch; every TPU kernel on the ported
 path is a hand-written CUDA kernel for sm_90a under `csrc/`, built with
 nvcc at first use, with a plain PyTorch version beside it for CPU

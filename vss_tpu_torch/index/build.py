@@ -46,10 +46,11 @@ from vss_tpu_torch.index.search import (
     _dedupe_keep_first,
     beam_search_base,
     greedy_descent,
+    pivot_seeds,
 )
 from vss_tpu_torch.index.select import select_neighbors
 from vss_tpu_torch.ops.distance import gathered_distances, pairwise
-from vss_tpu_torch.ops.gather import gather_rows
+from vss_tpu_torch.ops.gather import gather_distances, gather_rows
 from vss_tpu_torch.ops.topk import _sort_min_k
 from vss_tpu_torch.utils import cdiv, resolve_device, round_up
 
@@ -138,13 +139,20 @@ def _host(a) -> np.ndarray:
 def _insert_wave_core(
     g: HNSWGraph, config: HNSWConfig, wave_vecs, slots, wave_levels,
     wave_upper_rows, wave_rowids, wave_valid, efc: int, expand: int = 4,
-    intra_k: int = 16,
+    intra_k: int = 16, pivots=None,
 ) -> HNSWGraph:
     """Insert one wave into `g`, whose tensors are updated in place.
     Returns the graph object to use afterwards (the same tensors, new
     entry / max_level / count). The wave's slots, levels, upper rows,
     rowids and valid flags are read on the host: pass numpy arrays to
-    spare the device round trip."""
+    spare the device round trip.
+
+    `pivots` (pivot_slots, pivot_vecs) of the graph, when given, seed the
+    nodes that stop at level 0 or 1 from their nearest pivot (a level >= 1
+    node) where it is nearer than the greedy descent's end: the descent
+    runs from one entry through upper levels that, on the bulk builder's
+    graphs, join no clusters. The JAX package has no such seeding; the
+    default (None) is its algorithm."""
     dev = g.device
     slots_h = _host(slots).astype(np.int64)
     levels_h = _host(wave_levels).astype(np.int32)
@@ -183,6 +191,13 @@ def _insert_wave_core(
     has_entry = old_entry >= 0
     seeds = torch.where(has_entry, seeds, -1)
     seed_d = torch.where(has_entry, seed_d, _INF)
+    if pivots is not None and pivots[0] is not None:
+        p_seed, _ = pivot_seeds(g, config, wave_vecs, pivots[0], pivots[1], 1, q_norms)
+        # scored the way the beam scores every node (kernel K1)
+        p_d = gather_distances(g.vectors, p_seed, wave_vecs, config.metric, q_norms)[:, 0]
+        nearer = (wave_levels <= 1) & (p_seed[:, 0] >= 0) & (p_d < seed_d) & has_entry
+        seeds = torch.where(nearer, p_seed[:, 0], seeds)
+        seed_d = torch.where(nearer, p_d, seed_d)
 
     # ---- intra-wave candidates: one W x W distance tile
     d_ww = pairwise(wave_vecs, wave_vecs, config.metric)

@@ -48,7 +48,7 @@ from vss_tpu_torch.ops.scan import scan_topk
 from vss_tpu_torch.ops.topk import bruteforce_topk
 from vss_tpu_torch.utils import next_pow2, resolve_device
 
-__all__ = ["HNSWIndex", "rescale_distances"]
+__all__ = ["HNSWIndex", "graph_pivots", "rescale_distances"]
 
 _RESERVE = 8  # tail slots reserved (scatter sink + padding headroom)
 
@@ -263,19 +263,9 @@ class HNSWIndex:
         Cached per graph version; (None, None) for graphs too small to
         sample."""
         g = self.graph
-        if self._pivot_cache is not None and self._pivot_cache[0] is g:
-            return self._pivot_cache[1], self._pivot_cache[2]
-        mask = ((g.levels >= 1) & (g.slot_to_rowid >= 0)).cpu().numpy()
-        idx = np.nonzero(mask)[0]
-        if idx.size < min_pivots:
-            self._pivot_cache = (g, None, None)
-            return None, None
-        slots = np.full(next_pow2(idx.size), -1, np.int32)
-        slots[: idx.size] = idx
-        slots_t = torch.from_numpy(slots).to(self.device)
-        vecs = gather_rows(g.vectors, slots_t)
-        self._pivot_cache = (g, slots_t, vecs)
-        return slots_t, vecs
+        if self._pivot_cache is None or self._pivot_cache[0] is not g:
+            self._pivot_cache = (g, *graph_pivots(g, min_pivots))
+        return self._pivot_cache[1], self._pivot_cache[2]
 
     def norms(self):
         """Squared-norm tape [cap] f32 of the stored values, cached per
@@ -690,6 +680,20 @@ class HNSWIndex:
                 "scale_drift": self.scale_overflow > 0,
             },
         }
+
+
+def graph_pivots(g: HNSWGraph, min_pivots: int = 8):
+    """(pivot_slots [P] i32, pivot_vecs [P, d]) of a graph: its level >= 1
+    nodes, padded with -1 to a power of two, and their rows (kernel K5);
+    (None, None) when it has fewer than `min_pivots`."""
+    mask = ((g.levels >= 1) & (g.slot_to_rowid >= 0)).cpu().numpy()
+    idx = np.nonzero(mask)[0]
+    if idx.size < min_pivots:
+        return None, None
+    slots = np.full(next_pow2(idx.size), -1, np.int32)
+    slots[: idx.size] = idx
+    slots_t = torch.from_numpy(slots).to(g.device)
+    return slots_t, gather_rows(g.vectors, slots_t)
 
 
 def _compact_rows(rows: np.ndarray) -> np.ndarray:

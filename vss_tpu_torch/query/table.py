@@ -17,10 +17,14 @@ its cached vector columns are tensors there; the tables themselves stay
 numpy columns on the host. Checkpoints have the JAX package's layout (the
 same catalog, table `.npz` files and `index_<name>.vss` streams, in a
 directory or a `.vssdb` block file), so either package opens what the
-other wrote. Sharded indexes are not ported yet.
+other wrote, sharded indexes (`parallel/`) included: a sharded index
+takes the JAX package's `index_<name>.sharded` directory or its
+`index:<name>:shard<s>` block-file streams, and opens on
+`make_mesh(n_shards, device)`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import threading
@@ -34,11 +38,6 @@ from vss_tpu_torch.index.graph import HNSWConfig
 from vss_tpu_torch.utils import resolve_device
 
 __all__ = ["Table", "Database", "BinderError", "host"]
-
-_SHARDED = (
-    "sharded HNSW indexes are not ported to vss_tpu_torch yet "
-    "(ROADMAP queue A item 5, parallel/)"
-)
 
 
 def host(t: torch.Tensor) -> np.ndarray:
@@ -510,15 +509,25 @@ class Database:
         # hnsw_index_plan.cpp:101-139): only live non-NULL rows are indexed
         live = np.flatnonzero(t.row_valid & ~t.vector_null_mask(column))
         if sharded:
-            raise NotImplementedError(_SHARDED)
-        idx = HNSWIndex.build(
-            t.columns[column][live],
-            cfg,
-            rowids=t.rowids[live],
-            wave_size=wave_size,
-            seed=seed,
-            device=self.device,
-        )
+            from vss_tpu_torch.parallel import ShardedHNSWIndex, make_mesh
+
+            idx = ShardedHNSWIndex.build(
+                t.columns[column][live],
+                cfg,
+                mesh or make_mesh(device=self.device),
+                rowids=t.rowids[live],
+                wave_size=wave_size,
+                seed=seed,
+            )
+        else:
+            idx = HNSWIndex.build(
+                t.columns[column][live],
+                cfg,
+                rowids=t.rowids[live],
+                wave_size=wave_size,
+                seed=seed,
+                device=self.device,
+            )
         entry = IndexEntry(name=name, table=table, column=column, index=idx)
         self.indexes[name] = entry
         return entry
@@ -678,12 +687,17 @@ class Database:
             arrs = _encode_table_arrays(t)
             np.savez_compressed(os.path.join(path, f"table_{name}.npz"), **arrs)
             catalog["tables"][name] = {"next_rowid": t.next_rowid}
+        from vss_tpu_torch.parallel.sharded import ShardedHNSWIndex
+
         for name, e in self.indexes.items():
             meta = {"table": e.table, "column": e.column}
             target = os.path.join(path, f"index_{name}.vss")
             if not e.loaded and os.path.exists(target):
                 # deferred index, stream already on disk: nothing to write
                 pass
+            elif isinstance(e.index, ShardedHNSWIndex):
+                e.index.save(os.path.join(path, f"index_{name}.sharded"))
+                meta["sharded"] = True
             elif not os.path.exists(target) or e.index.dirty:
                 save_index(e.index, target)
             catalog["indexes"][name] = meta
@@ -740,6 +754,8 @@ class Database:
                 bs.put(f"table:{name}", buf.getvalue())
                 live.add(f"table:{name}")
                 catalog["tables"][name] = {"next_rowid": t.next_rowid}
+            from vss_tpu_torch.parallel.sharded import ShardedHNSWIndex
+
             for name, e in self.indexes.items():
                 key = f"index:{name}"
                 meta = {"table": e.table, "column": e.column}
@@ -748,7 +764,19 @@ class Database:
                     live.add(key)
                     catalog["indexes"][name] = meta
                     continue
-                if key not in bs or e.index.dirty:
+                if isinstance(e.index, ShardedHNSWIndex):
+                    meta["sharded"] = e.index.n_shards
+                    meta["config"] = dataclasses.asdict(e.index.config)
+                    maps = e.index._shard_maps()
+                    for s in range(e.index.n_shards):
+                        skey = f"{key}:shard{s}"
+                        if e.index.dirty or skey not in bs:
+                            buf = io.BytesIO()
+                            serialize_index(e.index._extract_shard(s, maps[s]), buf)
+                            bs.put(skey, buf.getvalue())
+                        live.add(skey)
+                    e.index.dirty = False
+                elif key not in bs or e.index.dirty:
                     buf = io.BytesIO()
                     serialize_index(e.index, buf)
                     bs.put(key, buf.getvalue())
@@ -772,8 +800,6 @@ class Database:
 
         with BlockStore(path) as bs:
             catalog = json.loads(bs.get("catalog").decode())
-            if any(m.get("sharded") for m in catalog["indexes"].values()):
-                raise NotImplementedError(_SHARDED)
             db = cls(path=path, device=device)
             db.settings.update(catalog.get("settings", {}))
             for name, meta in catalog["tables"].items():
@@ -785,6 +811,19 @@ class Database:
                 t.next_rowid = meta["next_rowid"]
                 db.tables[name] = t
             for name, meta in catalog["indexes"].items():
+                if meta.get("sharded"):
+                    from vss_tpu_torch.parallel.sharded import ShardedHNSWIndex
+
+                    sidx = ShardedHNSWIndex.from_shards(
+                        HNSWConfig(**meta["config"]), int(meta["sharded"]), None, db.device,
+                        lambda s, dev, key=f"index:{name}": deserialize_index(
+                            io.BytesIO(bs.get(f"{key}:shard{s}")), device=dev))
+                    db.indexes[name] = IndexEntry(
+                        name=name, table=meta["table"], column=meta["column"], index=sidx,
+                        meta=meta,
+                    )
+                    continue
+
                 # deferred load: reopen the store and pull the stream
                 # on first index bind (hnsw_index.cpp:221-239 analog)
                 def _loader(p=path, key=f"index:{name}", dev=db.device):
@@ -809,8 +848,6 @@ class Database:
             return db
         with open(os.path.join(path, "catalog.json")) as f:
             catalog = json.load(f)
-        if any(m.get("sharded") for m in catalog["indexes"].values()):
-            raise NotImplementedError(_SHARDED)
         db = cls(path=path, device=device)
         db.settings.update(catalog.get("settings", {}))
         for name, meta in catalog["tables"].items():
@@ -822,6 +859,16 @@ class Database:
             t.next_rowid = meta["next_rowid"]
             db.tables[name] = t
         for name, meta in catalog["indexes"].items():
+            if meta.get("sharded"):
+                from vss_tpu_torch.parallel.sharded import ShardedHNSWIndex
+
+                db.indexes[name] = IndexEntry(
+                    name=name, table=meta["table"], column=meta["column"],
+                    index=ShardedHNSWIndex.load(
+                        os.path.join(path, f"index_{name}.sharded"), device=db.device),
+                    meta=meta,
+                )
+                continue
             # deferred: no vector bytes move until the first bind
             db.indexes[name] = IndexEntry(
                 name=name, table=meta["table"], column=meta["column"],
