@@ -25,7 +25,15 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     in both of its layouts (pools in shared memory; pools in a per-query
     workspace in device memory, at ef 8,161 and 16,384 and forced at the
     serving shape) and with more neighbour slots a step than a block has
-    threads;
+    threads; then the greedy_descent kernel (`check_descent`) against the
+    eager loop that launches K5 and K1 once per step, which it must equal
+    exactly, at the insert wave's shape (1,024 queries, stop levels drawn
+    as a wave's) and the serving shape (512 queries, stop 0) on the 1M
+    graph, and at edge cases on small bf16 and f32 graphs (per-query
+    stops, step caps, ties, a NaN row and a NaN query, -1 padding, a graph
+    of one level, an empty graph). K1, K5 and the descent kernel are timed
+    by their device time from the profiler's trace, since their wrappers
+    take longer on the host than the kernels on the card;
  4. build and serve the flagship: a SIFT-like synthetic corpus of
     1,000,000 x 128 (the generator of bench.py, seed 0) in an int8 index
     with the f32 rerank tape, built by `HNSWIndex.build` with `auto` (on
@@ -37,7 +45,10 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     and the graph `search` at ef=64 (one beam_search launch per batch,
     K1 for the seed rescoring, K5 for the rerank gather) are scored by
     recall. Launch counters are zeroed just before each path and read
-    just after it;
+    just after it. Then the forward call of `vss_tpu_torch.entry.entry()`
+    (64 queries, k=10, ef=64 over a host-built 1,024-row graph: one
+    descent launch and one beam_search launch a call) with its ms, its
+    launches and its idle share;
  5. write to the same index, with new rows from the same generator and
     cluster centres: insert 32,768 rows in waves of 1,024 (the capacity
     doubles), tombstone 20% of all rows and search through them, insert
@@ -45,14 +56,16 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     then build a second index of 32,768 rows with the wave builder. Each
     step has its launch counters zeroed before and read after, its
     seconds printed and its result checked (counts, slots, recall against
-    the oracle over the live rows, no deleted row returned); one
+    the oracle over the live rows, no deleted row returned; every insert
+    step launches the descent kernel, and the insert step no K1); one
     1,024-row insert runs under the profiler for its idle share;
  6. the builders: native (every host core), wave and exact over the
     first 131,071 rows of the corpus, each with its seconds and recall@10
     at ef=64; the iid arm of bench.py (standard normal x 50, seed 7) at
     262,144 x 128, m=48, built with `auto`, where the IVF lists fail their
     sampled check and the scan pass (K2) makes the candidate lists, with
-    recall@10 at ef 512 and 768 and K2 timed at the build's shape; with
+    recall@10 at ef 512 and 768, the descent kernel against the eager
+    loop on its m=48 upper rows, and K2 timed at the build's shape; with
     `--gist`, bench.py's 1,000,000 x 960 cosine arm, made on the card;
  7. the Database (`vss_tpu_torch.Database` on the card), driven through
     SQL at the flagship's width: the 1,000,000 x 128 corpus in a table,
@@ -98,7 +111,9 @@ proxy: max |x|^2 + 2 max |q| max |x| for l2sq, max |q| for cosine), and
 places. K5 copies bytes: kernel and plain version must be equal bit for
 bit. The beam_search kernel scores with K1's code, so on the card it
 must equal the eager loop through K1 and K5 exactly (distances bit for
-bit, ids, both counters). Against the eager loop on the CPU, whose
+bit, ids, both counters); so must the greedy_descent kernel (the node
+reached, its distance bit for bit, its three counters). Against the eager
+loop on the CPU, whose
 distances differ in the last digits, near-ties may order differently:
 there recall@10 must agree within 0.002 and the top-10 ids for 0.99.
 """
@@ -232,7 +247,7 @@ def sift_like(rng, n: int, nq: int, d: int, centers=None):
 # phase 3: the kernels against their plain versions
 
 
-def check_k1(dev, tape, q_scaled, rng):
+def check_k1(dev, tape, q_scaled, rng, out_dir):
     from vss_tpu_torch.ops import gather as g
 
     log("K1 gather_distances")
@@ -264,22 +279,35 @@ def check_k1(dev, tape, q_scaled, rng):
             want = g._gather_distances_plain(t, ii, qq, g.Metric.parse(metric), (qq * qq).sum(-1))
             compare(f"{str(dtype)[6:]} d={d} {metric}", got, want, dist_scale(qq, t, metric))
     # timing: 64 id sets (128 MB of rows) cycle so the rows come from HBM,
-    # as each beam step's new candidates do
-    id_sets = itertools.cycle(
-        [torch.randint(0, N, (BATCH, 32), dtype=torch.int32, device=dev) for _ in range(64)])
+    # as each beam step's new candidates do. The kernel's time is its device
+    # time from the profiler's trace: the wrapper's host time a call is
+    # longer than the kernel, so CUDA events around a run of calls measure
+    # the host's launch rate (kept beside it as `event_ms`)
+    def timed(C, reps=200):
+        sets = itertools.cycle(
+            [torch.randint(0, N, (BATCH, C), dtype=torch.int32, device=dev) for _ in range(64)])
+        ms = device_ms(lambda: g.gather_distances(tape, next(sets), q_scaled, "l2sq", qn), reps,
+                       "gather_dist_kernel", out_dir)
+        event_ms = cuda_ms(lambda: g.gather_distances(tape, next(sets), q_scaled, "l2sq", qn),
+                           reps)
+        plain_ms = cuda_ms(lambda: g._gather_distances_plain(
+            tape, next(sets), q_scaled, g.Metric.L2SQ, qn), reps)
+        n_ids = BATCH * C
+        bytes_moved = n_ids * 4 + BATCH * D * 4 + BATCH * 4 + n_ids * D * tape.element_size() \
+            + n_ids * 4
+        b_ms, b_by = bound(bytes_moved, n_ids * D * 4, "f32")
+        log(f"  ids {BATCH}x{C}: kernel {ms:.5f} ms device time ({event_ms:.4f} ms between CUDA "
+            f"events around {reps} wrapper calls), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
+        return dict(shape=f"ids {BATCH}x{C}", ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by)
 
-    def kernel():
-        g.gather_distances(tape, next(id_sets), q_scaled, "l2sq", qn)
-
-    def plain():
-        g._gather_distances_plain(tape, next(id_sets), q_scaled, g.Metric.L2SQ, qn)
-
-    ms, plain_ms = cuda_ms(kernel, 200), cuda_ms(plain, 200)
-    n_ids = BATCH * 32
-    bytes_moved = n_ids * 4 + BATCH * D * 4 + BATCH * 4 + n_ids * D * tape.element_size() + n_ids * 4
-    b_ms, b_by = bound(bytes_moved, n_ids * D * 4, "f32")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                max_abs_err=errs["l2sq"])
+    # one beam step's candidates, and the seed rescoring of `search` (4 seeds)
+    shapes = [timed(32), timed(4)]
+    main = shapes[0]
+    return dict(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None, max_abs_err=errs["l2sq"],
+                shapes=shapes)
 
 
 def check_k2(dev, tape, xn, valid, q_scaled, rng):
@@ -410,12 +438,13 @@ def check_k4(dev, x, q, rng):
                 library_ms=library_ms, max_abs_err=err)
 
 
-def check_k5(dev, tape, rerank, adj0, rng):
+def check_k5(dev, tape, rerank, adj0, rng, out_dir):
     """K5 against its plain version, bit for bit. The main shapes are the
     write path's: compaction permutes the grown tapes (twice the index's
     capacity: ascending kept slots, then a tail of zeros), one wave's
     `select_neighbors` gathers W x (ef_construction + M) candidate rows,
-    and a beam step gathers W x 4 adjacency rows."""
+    and a beam step gathers W x 4 adjacency rows. Each shape is timed
+    between CUDA events and by the kernel's device time."""
     from vss_tpu_torch.ops import gather as g
 
     log("K5 gather_rows")
@@ -432,10 +461,14 @@ def check_k5(dev, tape, rerank, adj0, rng):
             fail(f"K5 {name}: kernel and plain version differ in {diff} bytes")
 
     def timed(name, table, id_sets, reps):
-        """(ms, plain_ms, library_ms, bound_ms, bound_by) over cycling id sets."""
+        """(ms, device_ms, plain_ms, library_ms, bound_ms, bound_by) over
+        cycling id sets: `ms` between CUDA events around the run of calls,
+        `device_ms` the kernel's own device time from the profiler."""
         sets = itertools.cycle(id_sets)
         longs = itertools.cycle([i.clamp(min=0).reshape(-1).long() for i in id_sets])
         ms = cuda_ms(lambda: g.gather_rows(table, next(sets)), reps)
+        dev_ms = device_ms(lambda: g.gather_rows(table, next(sets)), reps, "gather_rows_kernel",
+                           out_dir)
         plain_ms = cuda_ms(lambda: g._gather_rows_plain(table, next(sets)), reps)
         library_ms = cuda_ms(lambda: torch.index_select(table, 0, next(longs)), reps)
         ids = id_sets[0]
@@ -444,10 +477,10 @@ def check_k5(dev, tape, rerank, adj0, rng):
         bytes_moved = (int(torch.unique(ids.clamp(min=0)).numel()) + ids.numel()) * row_bytes \
             + ids.numel() * 4
         b_ms, b_by = bound(bytes_moved, 0, "f32")
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
-            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        return dict(shape=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=b_ms, bound_by=b_by)
+        log(f"  {name}: kernel {ms:.4f} ms ({dev_ms:.5f} ms device time), plain "
+            f"{plain_ms:.4f} ms, index_select {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        return dict(shape=name, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
     cap = tape.shape[0]
     grown = 2 * cap
@@ -804,6 +837,258 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
                 wide_ms_small_graph={str(k): v for k, v in wide_ms.items()})
 
 
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal floats to the last bit (-0 differs from +0), any NaN equal to
+    any NaN."""
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+# Two ways torch.profiler's trace lost kernels on the H100, both at the
+# start of a traced run. (1) It puts each kernel on the host's clock through
+# an offset it estimates for the card; once that came out 3.5 ms early, and
+# the kernels of the run's first milliseconds fell before the profiler's
+# window. (2) Later in a long process every trace lacked the kernels of
+# its first 1-17 launches (the first 0.6-1.6 ms of launches), though the
+# runtime's launch records were there. So a traced run waits
+# TRACE_MARGIN_S on the host, makes TRACE_WARM_LAUNCHES throwaway launches
+# over a few milliseconds, and only then runs what it measures, inside a
+# marked span; the trace is read within that span alone.
+TRACE_MARGIN_S = 0.1
+TRACE_WARM_LAUNCHES = 32
+
+
+def traced(fn, out_dir: str, name: str) -> tuple:
+    """Run `fn` under torch.profiler (see TRACE_MARGIN_S), the trace
+    exported to `out_dir/trace_<name>.json`. Returns (kernel events, lost)
+    of the launches `fn` made: `lost` counts those whose kernel the trace
+    lacks (launch calls of the runtime or the driver whose correlation id
+    no kernel carries); where it lost some, logs where they sit."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    warm = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        for _ in range(TRACE_WARM_LAUNCHES):
+            warm.add_(1)
+            time.sleep(1e-4)
+        torch.cuda.synchronize()
+        with record_function("traced_run"):
+            fn()
+            torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace_" + re.sub(r"\W+", "_", name).strip("_") + ".json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events
+                if e.get("cat") == "user_annotation" and e.get("name") == "traced_run")
+    launches = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", "")
+                       and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]),
+                      key=lambda e: e["ts"])
+    corr = {e.get("args", {}).get("correlation") for e in launches}
+    by_corr = {e.get("args", {}).get("correlation"): e for e in events
+               if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in corr}
+    lost = [n for n, e in enumerate(launches) if e.get("args", {}).get("correlation")
+            not in by_corr]
+    if lost:
+        t0 = launches[0]["ts"]
+        log(f"  (trace {name}: {len(lost)} of {len(launches)} launches have no kernel, at "
+            f"positions {lost[:12]}, launched {launches[lost[0]]['ts'] - t0:.0f} to "
+            f"{launches[lost[-1]]['ts'] - t0:.0f} us after the first)")
+    return list(by_corr.values()), len(lost)
+
+
+def device_ms(fn, reps: int, kernel: str, out_dir: str) -> float:
+    """Mean device milliseconds of the kernel whose name holds `kernel`
+    over `reps` calls of `fn` after one warm-up call: each launch's own
+    start and end on the card, from torch.profiler's trace, so the host's
+    launch rate does not enter. Fails unless the trace holds every launch
+    (two retries)."""
+    fn()
+    for _ in range(3):
+        kernels, lost = traced(lambda: [fn() for _ in range(reps)], out_dir,
+                               f"device_ms_{kernel}")
+        durs = [e["dur"] for e in kernels if kernel in e.get("name", "")]
+        if len(durs) == reps and not lost:
+            return sum(durs) / reps / 1e3
+    fail(f"device time of {kernel}: the profiler's trace lost launches three times")
+
+
+def descent_variant(label: str, g, cfg, q, stop, max_iters: int = 0, q_norms=None):
+    """The greedy_descent kernel against `_greedy_descent_plain`, the eager
+    loop that launches K5 and K1 once per step: on the card the node
+    reached, its distance bit for bit and the counters (steps, tape rows
+    scored, adjacency rows read) must be equal, through `_descent_launch`
+    and through the public `greedy_descent`. Returns the counters and the
+    eager loop's visits (the rows each step scored and read)."""
+    from vss_tpu_torch.index import search as sr
+
+    mi = sr._descent_iters(cfg, max_iters)
+    visits = []
+    want = sr._greedy_descent_plain(g, cfg, q, stop, mi, q_norms, visits)
+    want = (*want, sr._descent_counters(visits))
+    got = sr._descent_launch(g, cfg, q, stop, mi, q_norms)
+    public = sr.greedy_descent(g, cfg, q, stop_level=stop, max_iters=max_iters, q_norms=q_norms)
+    torch.cuda.synchronize()
+    for entry, out in (("_descent_launch", got), ("greedy_descent", public)):
+        if not torch.equal(out[0], want[0]):
+            fail(f"greedy_descent {label}, {entry}: the node reached differs from the eager "
+                 f"loop's for {int((out[0] != want[0]).sum())} of {q.shape[0]} queries")
+        if not bit_equal(out[1], want[1]):
+            fail(f"greedy_descent {label}, {entry}: distances differ from the eager loop's")
+    counts = [int(c) for c in got[2]]
+    if counts != list(want[2]):
+        fail(f"greedy_descent {label}: counters {counts} != the eager loop's {list(want[2])}")
+    log(f"  {label}: equal to the eager loop (ids, distances bit for bit, {counts[0]} steps, "
+        f"{counts[1]} rows scored, {counts[2]} adjacency rows)")
+    return counts, visits
+
+
+def descent_edge_cases(name: str, g, cfg, q) -> None:
+    """`descent_variant` over the edge cases of the emulated test on the
+    graph `g` with queries `q` (at least 8, the 6th holding a NaN): per-query
+    stops (0, 1, the top, above it), step caps of 1 and 2, every neighbour
+    of the entry's level-1 row tied at the first query (and, on an f32
+    tape, one of them NaN past the first), -1 padding in the adjacency
+    rows and missing upper rows, a graph of one level, an empty graph and
+    an empty batch. Edits go to clones of `g`."""
+    from vss_tpu_torch.index.graph import cast_to_tape, empty_graph
+
+    dev = q.device
+    M = g.upper_adj.shape[1]
+    top = int(g.max_level)
+    stops = torch.tensor([0, 1, top, top + 1], dtype=torch.int32,
+                         device=dev).repeat((q.shape[0] + 3) // 4)[:q.shape[0]]
+    descent_variant(f"{name}, stop 0, a NaN query", g, cfg, q, 0)
+    descent_variant(f"{name}, per-query stops (0, 1, top, above)", g, cfg, q, stops)
+    descent_variant(f"{name}, max_iters=1", g, cfg, q, 0, max_iters=1)
+    descent_variant(f"{name}, max_iters=2, per-query stops", g, cfg, q, stops, max_iters=2)
+    # from level 1, every neighbour of the entry's level-1 row tied at the
+    # first query's own vector, one of them NaN past the first
+    tg = g.clone()
+    tg.max_level = torch.tensor(1, dtype=torch.int32, device=dev)
+    ids = tg.upper_adj[int(tg.upper_row[int(tg.entry), 0])]
+    ids = ids[ids >= 0].long()
+    tg.vectors[ids] = cast_to_tape(q[:1], cfg)
+    descent_variant(f"{name}, {ids.numel()} tied neighbours", tg, cfg, q, 0)
+    if tg.vectors.dtype == torch.float32:
+        tg.vectors[ids[1], 2] = float("nan")
+        descent_variant(f"{name}, a NaN row among the neighbours", tg, cfg, q, 0)
+    del tg
+    pg = g.clone()
+    pg.upper_adj[::2, M // 2:] = -1
+    upper = torch.nonzero(pg.levels >= 1)[:, 0]
+    pg.upper_row[upper[::3], 0] = -1
+    descent_variant(f"{name}, -1 padding and missing upper rows", pg, cfg, q, 0)
+    del pg
+    one = g.clone()
+    one.max_level = torch.tensor(0, dtype=torch.int32, device=dev)
+    descent_variant(f"{name}, a graph of one level", one, cfg, q, stops)
+    del one
+    descent_variant(f"{name}, an empty graph", empty_graph(cfg, 64, device=dev), cfg, q, 0)
+    descent_variant(f"{name}, an empty batch", g, cfg, q[:0], 0)
+
+
+def check_descent(dev, idx, q_scaled, wave_vecs, rng, read_ns: float, out_dir: str) -> dict:
+    """The greedy_descent kernel against the eager loop through K1 and K5,
+    exactly (`descent_variant`), on the 1M flagship graph at the insert
+    wave's shape (the first wave of the write path's rows, `wave_vecs`,
+    with stop levels drawn as a wave draws its nodes' levels) and the
+    serving shape (512 queries, stop 0), each timed by the kernel's device
+    time beside the eager loop's wall time, its byte bound and its
+    dependent-read floor; then the edge cases of the emulated test on
+    small bf16 and f32 graphs."""
+    from vss_tpu_torch import HNSWConfig, HNSWIndex
+    from vss_tpu_torch.index import search as sr
+    from vss_tpu_torch.index.graph import sample_levels
+
+    log("greedy_descent")
+    g, cfg = idx.graph, idx.config
+    M = g.upper_adj.shape[1]
+    row_bytes = g.vectors.shape[1] * g.vectors.element_size()
+    mi = sr._descent_iters(cfg, 0)
+    # an insert wave's queries: its new rows in the tape's units
+    wq = (torch.from_numpy(wave_vecs[:WAVE]).to(dev) / idx.vector_scale).contiguous()
+    wave_stop = torch.from_numpy(sample_levels(WAVE, cfg, seed=1)).to(dev)
+    shapes = {}
+    for key, label, q, stop in (
+            ("wave", f"wave: {WAVE} queries, stop levels drawn as a wave's", wq, wave_stop),
+            ("serving", f"serving: {BATCH} queries, stop 0", q_scaled, 0)):
+        qn = (q * q).sum(-1)
+        (steps, scored, adj_rows), visits = descent_variant(label, g, cfg, q, stop, q_norms=qn)
+        ms = device_ms(lambda: sr._descent_launch(g, cfg, q, stop, mi, qn), 50,
+                       "descent_kernel", out_dir)
+        event_ms = cuda_ms(lambda: sr._descent_launch(g, cfg, q, stop, mi, qn), 50)
+        plain_times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sr._greedy_descent_plain(g, cfg, q, stop, mi, qn)
+            torch.cuda.synchronize()
+            plain_times.append((time.perf_counter() - t0) * 1e3)
+        plain_ms = min(plain_times)
+        B = q.shape[0]
+        # each query, its norm, stop level and outputs once; each distinct
+        # adjacency row (with its upper_row entry) and each distinct tape
+        # row (the entry's too) once, however many queries read it
+        rows = torch.unique(torch.cat([g.entry.clamp(min=0).reshape(1).long()]
+                                      + [s.long() for s, _ in visits]))
+        adj_unique = torch.unique(torch.cat([r.long().reshape(-1) for _, r in visits]
+                                            + [rows[:0]]))
+        bytes_moved = B * (D * 4 + 4 + 4 + 8) + adj_unique.numel() * (4 + M * 4) \
+            + rows.numel() * row_bytes
+        b_ms, b_by = bound(bytes_moved, 4.0 * (scored + B) * D, "f32")
+        floor_ms = steps * 3 * read_ns / 1e6
+        log(f"  {key}: kernel {ms:.4f} ms device time ({event_ms:.4f} ms between CUDA events "
+            f"around 50 wrapper calls), eager loop {plain_ms:.3f} ms wall, bound {b_ms:.5f} ms "
+            f"({b_by}: {bytes_moved} B, {rows.numel()} distinct tape rows of {scored + B} "
+            f"scored, {adj_unique.numel()} distinct adjacency rows of {adj_rows} read), "
+            f"dependent-read floor {floor_ms:.4f} ms ({steps} steps x 3 reads x {read_ns:.0f} ns)")
+        shapes[key] = dict(queries=B, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, dependent_read_floor_ms=floor_ms,
+                           steps=steps, rows_scored=scored, adjacency_rows=adj_rows,
+                           distinct_rows=rows.numel(), distinct_adjacency_rows=adj_unique.numel())
+
+    # ---- the public call on CUDA tensors is one launch and no host sync:
+    # under sync debug mode "error" PyTorch raises on a synchronizing call
+    from vss_tpu_torch import csrc
+
+    for stop in (0, wave_stop):
+        before = {k: v.launches for k, v in csrc.KERNELS.items()}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sr.greedy_descent(g, cfg, wq, stop_level=stop)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran = {k: v.launches - before[k] for k, v in csrc.KERNELS.items()
+               if v.launches != before[k]}
+        if ran != {"greedy_descent": 1}:
+            fail(f"greedy_descent on CUDA tensors launched {ran}, not one greedy_descent")
+    log("  greedy_descent on CUDA tensors: one launch, no host sync (sync debug mode "
+        "\"error\"), with a scalar and with a per-query stop level")
+
+    # ---- edge cases, on small graphs with bf16 and f32 tapes
+    for storage, metric, d in (("bf16", "l2sq", 128), ("f32", "cosine", 96), ("f32", "ip", 100)):
+        n = 4096
+        sv = rng.normal(size=(n, d)).astype(np.float32)
+        scfg = HNSWConfig(dims=d, metric=metric, storage_dtype=storage, rerank="none")
+        small = HNSWIndex.build(sv, scfg, method="native", device=dev)
+        sg = small.graph
+        sq = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32)).to(dev)
+        sq = sq / small.vector_scale
+        sq[5, 3] = float("nan")
+        sq[6] = 0
+        descent_edge_cases(f"{storage} {n} x {d} {metric}", sg, scfg, sq)
+    wave = shapes["wave"]
+    return dict(ms=wave["ms"], plain_ms=wave["plain_ms"], bound_ms=wave["bound_ms"],
+                bound_by=wave["bound_by"], library_ms=None, max_abs_err=0.0,
+                dependent_read_ns=read_ns, shapes=shapes)
+
+
 # ----------------------------------------------------------------------
 # phase 4: the main path
 
@@ -828,34 +1113,74 @@ def timed_batches(fn, queries):
 
 
 def profile_batch(label: str, fn, qb, wall_ms: float, out_dir: str) -> dict:
-    """One batch of `fn` under torch.profiler. From the exported trace:
+    """One batch of `fn` under torch.profiler (`traced`). From the trace:
     the number of kernels, the device-busy time (the sum of kernel
     durations: one stream, so they do not overlap) and the kernels that
     take most of it. The idle share is taken against the unprofiled
-    ms/batch `wall_ms`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(qb)
-        torch.cuda.synchronize()
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace_" + re.sub(r"\W+", "_", label).strip("_") + ".json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    ms/batch `wall_ms`. A trace that lost kernels measures nothing: its
+    busy time and idle share are left out and the loss is logged."""
+    kernels, lost = traced(lambda: fn(qb), out_dir, label)
+    if lost or not kernels:
+        log(f"profile {label}: the trace lost {lost} of {len(kernels) + lost} kernels; device "
+            f"busy time not measured")
+        return {"kernels": len(kernels), "lost": lost}
     busy_ms = sum(e["dur"] for e in kernels) / 1e3
     by_name = collections.Counter()
     for e in kernels:
         by_name[e["name"][:48]] += e["dur"] / 1e3
     top = [[n, round(ms, 4)] for n, ms in by_name.most_common(5)]
-    if not kernels:
-        log(f"profile {label}: the trace holds no kernels; device busy time not measured")
-        return {"kernels": 0}
-    log(f"profile {label}: {len(kernels)} kernels, device busy {busy_ms:.3f} ms of "
+    log(f"profile {label}: {len(kernels)} kernels (none lost), device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms/batch, idle share {1 - busy_ms / wall_ms:.3f}; top {top}")
-    return {"kernels": len(kernels), "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "top_ms": top}
+    return {"kernels": len(kernels), "lost": 0, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "top_ms": top}
+
+
+def entry_call(dev, launches, out_dir) -> dict:
+    """The forward call that `vss_tpu_torch.entry.entry()` returns (64
+    queries, d=128, k=10, ef=64 over a host-built 1,024-row graph, seeded
+    by greedy descent): its ms on the host clock over 20 calls, each ending
+    in a synchronize, with the launch counts zeroed just before them and
+    read just after (and added to `launches`); one launch of the descent
+    kernel and one of beam_search a call, K1 none; recall@10 against the
+    exact oracle; one call under the profiler for its idle share."""
+    from vss_tpu_torch import csrc
+    from vss_tpu_torch.entry import entry
+    from vss_tpu_torch.ops import bruteforce_topk
+
+    fwd, (graph, q) = entry()
+    fwd(graph, q)
+    torch.cuda.synchronize()
+    reps = 20
+    csrc.reset_launch_counts()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        dd, ii = fwd(graph, q)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v.launches for k, v in csrc.KERNELS.items()}
+    for k, v in counts.items():
+        launches[k] += v
+    n = int(graph.count)
+    if dd.shape != (64, K) or ii.shape != (64, K) or not bool(torch.isfinite(dd).all()) \
+            or bool(((ii < 0) | (ii >= n)).any()) or bool((dd.diff(dim=1) < 0).any()):
+        fail(f"entry() forward: shapes {tuple(dd.shape)} {tuple(ii.shape)}, non-finite "
+             f"distances, ids out of range or not ascending")
+    truth = bruteforce_topk(q, graph.vectors[:n].float(), K, "l2sq", device=dev)[1]
+    r = recall(ii.cpu().numpy(), truth.cpu().numpy())
+    if counts["greedy_descent"] != reps or counts["beam_search"] != reps \
+            or counts["gather_distances"] != 0:
+        fail(f"entry() forward, {reps} calls: launches {counts}; expected one greedy_descent "
+             f"and one beam_search a call and no gather_distances")
+    if r < 0.9:
+        fail(f"entry() forward: recall@10 {r} < 0.9")
+    ms = sorted(times)[reps // 2]
+    prof = profile_batch("entry() forward", lambda _: fwd(graph, q), None, ms, out_dir)
+    log(f"entry() forward (64 queries, k=10, ef=64, {n} rows): median {ms:.4f} ms of {reps} "
+        f"calls (min {min(times):.4f}), launches a call "
+        f"{ {k: v / reps for k, v in counts.items() if v} }, recall@10 {r:.4f}")
+    return {"ms_median": ms, "ms_min": min(times), "calls": reps, "launches": counts,
+            "recall_at_10": r, "profile": prof}
 
 
 def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) -> dict:
@@ -924,9 +1249,13 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     # some new rows are linked far from their own cluster
     if self_hit < 0.9:
         fail(f"only {self_hit} of the inserted rows find themselves")
-    for kname in ("gather_rows", "gather_distances", "beam_search"):
-        if steps[f"insert {N_INSERT} rows"]["launches"][kname] <= 0:
+    ins = steps[f"insert {N_INSERT} rows"]["launches"]
+    for kname in ("gather_rows", "greedy_descent", "beam_search"):
+        if ins[kname] <= 0:
             fail(f"kernel {kname} was not launched by the insert step")
+    # the descent is one kernel launch a wave: K1 no longer runs there
+    if ins["gather_distances"] != 0:
+        fail(f"the insert step launched gather_distances {ins['gather_distances']} times")
 
     # 2. tombstone a share of all rows; search through the tombstones
     gone = wrng.choice(n1, int(n1 * DELETE_SHARE), replace=False)
@@ -949,6 +1278,8 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     if idx.next_slot != n1 or idx.deleted_count != gone.size - N_RECYCLE:
         fail(f"after the recycling insert: next_slot {idx.next_slot} (expected {n1}), "
              f"tombstones {idx.deleted_count} (expected {gone.size - N_RECYCLE})")
+    if steps[f"insert {N_RECYCLE} rows into recycled slots"]["launches"]["greedy_descent"] <= 0:
+        fail("kernel greedy_descent was not launched by the recycling insert")
     live = np.concatenate([live, np.ones(N_RECYCLE, bool)])
 
     # 4. compact
@@ -995,7 +1326,7 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     log(f"wave build: {nb / wave_s:.1f} rows/s, recall@10 search ef={EF} {r_wave:.4f}")
     if r_wave < 0.9:
         fail(f"recall@10 of the wave-built index {r_wave} < 0.9")
-    for kname in ("gather_distances", "beam_search"):
+    for kname in ("greedy_descent", "beam_search"):
         if steps[f"wave build of {nb} rows"]["launches"][kname] <= 0:
             fail(f"kernel {kname} was not launched by the wave build")
     return {
@@ -1275,6 +1606,7 @@ def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) ->
     del db
     gc.collect()
     db = step("open with replay", lambda: Database.open(path, device=dev))
+    need("open with replay", "greedy_descent")
     t = db.table("items")
     if (t.positions_of_rowids(gone) >= 0).any():
         fail("a deleted row came back after the replay")
@@ -1511,7 +1843,7 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
     wrng = np.random.default_rng(seed + 4)
     new_vecs, _, _ = sift_like(wrng, N_INSERT, 0, D, centers)
     step(f"insert {N_INSERT} rows", lambda: idx.insert(new_vecs, np.arange(N, N + N_INSERT)))
-    need(f"insert {N_INSERT} rows", *graph_kernels)
+    need(f"insert {N_INSERT} rows", *graph_kernels, "greedy_descent")
     n1 = N + N_INSERT
     if idx.count != n1 or sum(idx.next_slot) != n1:
         fail(f"after the insert: {idx.count} rows, next slots {idx.next_slot}")
@@ -1839,6 +2171,19 @@ def iid_arm(dev, launches) -> dict:
         log(f"iid: recall@10 search ef={ef} {recalls[ef]:.4f}")
     if min(recalls.values()) < 0.85:
         fail(f"iid recall@10 {recalls} < 0.85")
+    # the descent kernel on this graph, whose upper rows hold m=48 ids:
+    # three rounds of lane groups a step
+    from vss_tpu_torch.index.graph import sample_levels
+
+    iq_s = (iq / index.vector_scale).contiguous()
+    descent_variant(f"iid graph (m=48), {BATCH} queries, stop 0", index.graph, index.config,
+                    iq_s[:BATCH], 0)
+    descent_variant(f"iid graph (m=48), {WAVE} queries, stop levels drawn as a wave's",
+                    index.graph, index.config, iq_s[:WAVE], torch.from_numpy(
+                        sample_levels(WAVE, cfg, seed=2)).to(dev))
+    eq = iq_s[:64].clone()
+    eq[5, 3] = float("nan")
+    descent_edge_cases("iid graph (m=48)", index.graph, index.config, eq)
     # K2 at the build's shape: the scan pass's batch of tape rows as
     # queries, over the whole tape
     tape = index.graph.vectors[:N_IID]
@@ -2079,14 +2424,21 @@ def main() -> int:
     # ---- phase 3: kernels against their plain versions
     krng = np.random.default_rng(args.seed + 1)
     results = {
-        "gather_distances": check_k1(dev, idx.graph.vectors, q_scaled, krng),
+        "gather_distances": check_k1(dev, idx.graph.vectors, q_scaled, krng, out_dir),
         "native_segmin": check_k2(dev, idx.graph.vectors, idx.norms(), idx.graph.valid,
                                   q_scaled, krng),
         "scan_segmin": check_k3(dev, x, q, krng),
         "pairwise": check_k4(dev, x, q, krng),
-        "gather_rows": check_k5(dev, idx.graph.vectors, idx.rerank_tape, idx.graph.adj0, krng),
+        "gather_rows": check_k5(dev, idx.graph.vectors, idx.rerank_tape, idx.graph.adj0, krng,
+                                out_dir),
         "beam_search": check_beam(dev, idx, q_scaled, krng),
     }
+    # the first insert wave of phase 5: its generator, its seed
+    wave_vecs = sift_like(np.random.default_rng(args.seed + 2), N_INSERT + N_RECYCLE, 0, D,
+                          centers)[0][:WAVE]
+    results["greedy_descent"] = check_descent(
+        dev, idx, q_scaled, wave_vecs, krng, results["beam_search"]["dependent_read_ns"],
+        out_dir)
     host_us = host_us_per_call(dev, idx.graph.vectors, idx.graph.adj0, q_scaled)
     torch.cuda.synchronize()
 
@@ -2193,6 +2545,7 @@ def main() -> int:
         f"{per_path[graph_path]['beam_search']} times, gather_distances "
         f"{per_path[graph_path]['gather_distances']}, gather_rows "
         f"{per_path[graph_path]['gather_rows']}")
+    summary["entry"] = entry_call(dev, launches, out_dir)
 
     # ---- phase 5: the write path, on the same index
     write = write_path(args.seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir)
@@ -2226,12 +2579,15 @@ def main() -> int:
         "beam_search": ("vss_tpu_torch/csrc/beam.cu",
                         "vss_tpu/ops/gather.py:142 and :39 inside the loop of "
                         "vss_tpu/index/search.py:442"),
+        "greedy_descent": ("vss_tpu_torch/csrc/descent.cu",
+                           "vss_tpu/index/search.py:102-150, with vss_tpu/ops/gather.py:142 "
+                           "(K1) and :39 (K5) inside its step"),
     }
     table = [
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
          "launches": launches[kname], **results[kname]}
         for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
-                      "gather_rows", "beam_search")
+                      "gather_rows", "beam_search", "greedy_descent")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

@@ -88,8 +88,8 @@ def test_kernels_refuse_cpu_tensors_and_count_nothing():
             kernel.launch((torch.zeros(4),))
         assert kernel.launches == before
     assert sorted(csrc.KERNELS) == [
-        "beam_search", "gather_distances", "gather_rows", "native_segmin", "pairwise",
-        "scan_segmin"]
+        "beam_search", "gather_distances", "gather_rows", "greedy_descent", "native_segmin",
+        "pairwise", "scan_segmin"]
 
 
 def _table(rng, dtype, n, row):

@@ -93,10 +93,21 @@ def test_greedy_descent_matches_jax(built):
     _, arrays, q = built
     jcfg, tcfg = JConfig(dims=D), TConfig(dims=D)
     jg = _jax_graph(arrays)
-    jc, jcd = jsearch.greedy_descent(jg, jcfg, jnp.asarray(q))
-    tc, tcd = tsearch.greedy_descent(graph_from_arrays(arrays, "cpu"), tcfg, torch.from_numpy(q))
-    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    np.testing.assert_allclose(tcd.numpy(), np.asarray(jcd), rtol=RTOL, atol=ATOL)
+    tg = graph_from_arrays(arrays, "cpu")
+    top = int(arrays["max_level"])
+    # per-query stop levels (0, 1, the top, above the top), and step caps
+    stops = np.resize(np.array([0, 1, top, top + 1, 0, 2], np.int32), q.shape[0])
+    for stop, max_iters in ((0, 0), (stops, 0), (0, 1), (stops, 2)):
+        jc, jcd = jsearch.greedy_descent(jg, jcfg, jnp.asarray(q), stop_level=jnp.asarray(stop),
+                                         max_iters=max_iters)
+        tc, tcd = tsearch.greedy_descent(tg, tcfg, torch.from_numpy(q),
+                                         stop_level=torch.as_tensor(stop), max_iters=max_iters)
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_allclose(tcd.numpy(), np.asarray(jcd), rtol=RTOL, atol=ATOL)
+    # the step caps stop the descent early
+    full, _ = tsearch.greedy_descent(tg, tcfg, torch.from_numpy(q))
+    one, _ = tsearch.greedy_descent(tg, tcfg, torch.from_numpy(q), max_iters=1)
+    assert top >= 2 and not torch.equal(full, one)
 
 
 @pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])

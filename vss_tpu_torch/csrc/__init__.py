@@ -36,6 +36,7 @@ SOURCES = {
     "topk": "topk.cu",
     "distance": "distance.cu",
     "beam": "beam.cu",
+    "descent": "descent.cu",
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }

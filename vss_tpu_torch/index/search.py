@@ -12,25 +12,34 @@ the `level` argument of `beam_search_base`, the construction beams of
     tombstones (deleted nodes still route); the result pool only admits
     `valid & filter` nodes.
 
-The JAX package runs the beam as one `lax.while_loop` with its gather
-kernels inside. Here, for CUDA tensors, `beam_search_base` is one launch
-of the `beam_search` kernel (`csrc/beam.cu`): one thread block per query
-runs the whole loop with the pools in shared memory, the adjacency load
-(kernel K5's work) and the scoring (kernel K1's) as device functions
-inside it, and no host sync (pools too large for shared memory live in a
-per-query workspace in device memory instead). Nothing of one query's
-state is read by another, so the batch's lockstep loop and B independent loops give the
-same pools; the iteration counter is the largest any query ran.
+The JAX package runs the beam and the greedy descent each as one
+`lax.while_loop` with its gather kernels inside. Here, for CUDA tensors,
+each is one launch of a hand-written kernel with no host sync:
 
-`_beam_search_base_plain` is that kernel's plain version and what runs
-for CPU tensors: the lockstep loop in PyTorch, every distance through K1
-(`ops/gather.gather_distances`) and every adjacency gather through K5
-(`ops/gather.gather_rows`), each the hand-written kernel on CUDA and its
-plain version on the CPU. It checks the done latch on the host every
-`_SYNC_EVERY` iterations; iterations after every query is done change
-nothing, so the result equals a check every iteration. The seed
-rescoring, the rerank gather and `greedy_descent` go through K1 and K5
-on their own.
+  * `beam_search_base` launches `beam_search` (`csrc/beam.cu`): one thread
+    block per query runs the whole loop with the pools in shared memory,
+    the adjacency load (kernel K5's work) and the scoring (kernel K1's) as
+    device functions inside it (pools too large for shared memory live in
+    a per-query workspace in device memory instead);
+  * `greedy_descent` launches `greedy_descent` (`csrc/descent.cu`): one
+    thread block per query walks the upper levels, reading each adjacency
+    row and scoring its neighbours with the same device functions, the
+    argmin and the level drop in registers and shared memory.
+
+Nothing of one query's state is read by another, so the batch's lockstep
+loop and B independent loops give the same result; each kernel's
+iteration counter is the largest any query ran.
+
+`_beam_search_base_plain` and `_greedy_descent_plain` are the kernels'
+plain versions and what runs for CPU tensors: the lockstep loops in
+PyTorch, every distance through K1 (`ops/gather.gather_distances`) and
+every adjacency gather through K5 (`ops/gather.gather_rows`), each the
+hand-written kernel on CUDA and its plain version on the CPU, so that on
+the card they are the kernels' references. The beam loop checks its done
+latch on the host every `_SYNC_EVERY` iterations; iterations after every
+query is done change nothing, so the result equals a check every
+iteration. The descent loop checks at every step. The seed rescoring and
+the rerank gather go through K1 and K5 on their own.
 """
 from __future__ import annotations
 
@@ -61,26 +70,17 @@ _BEAM = csrc.register(csrc.Kernel(
     [csrc.PTR] * 12 + [csrc.I32] * 13 + [csrc.I64] * 3,
 ))
 
+_DESCENT = csrc.register(csrc.Kernel(
+    "greedy_descent", "descent", "vss_greedy_descent",
+    [csrc.PTR] * 11 + [csrc.I32] * 7,
+))
 
-def _descent_step(graph: HNSWGraph, config: HNSWConfig, q, state, q_norms):
-    """One step of batched greedy descent over the upper levels."""
-    lvl, cur, cur_d = state
-    # upper_row column for level `lvl` is lvl-1; only meaningful when lvl >= 1
-    col = (lvl - 1).clamp(min=0)
-    row = graph.upper_row[cur.long()].gather(1, col[:, None].long())[:, 0]
-    active = (lvl > 0) & (row >= 0)
-    neigh = gather_rows(graph.upper_adj, row)  # [B, M]
-    neigh = torch.where(active[:, None], neigh, -1)
-    nd = gather_distances(graph.vectors, neigh, q, config.metric, q_norms)
-    j = torch.argmin(nd, dim=1, keepdim=True)
-    best_d = nd.gather(1, j)[:, 0]
-    best_i = neigh.gather(1, j)[:, 0]
-    improved = active & (best_d < cur_d)
-    cur = torch.where(improved, best_i, cur)
-    cur_d = torch.where(improved, best_d, cur_d)
-    # no improvement (or no row at this level) -> drop a level
-    lvl = torch.where(improved, lvl, (lvl - 1).clamp(min=0))
-    return lvl, cur, cur_d
+
+def _descent_iters(config: HNSWConfig, max_iters: int) -> int:
+    """The descent's step cap: `max_iters`, or by default one that no
+    descent reaches (levels drop only on non-improving steps; improving
+    steps are bounded by path length)."""
+    return max_iters if max_iters > 0 else 8 * config.max_levels + 32
 
 
 def greedy_descent(
@@ -93,7 +93,24 @@ def greedy_descent(
 ):
     """Descend from the entry point to `stop_level` (per-query or scalar).
 
-    Returns (cur [B] i32, cur_d [B] f32): the beam-search seed."""
+    Returns (cur [B] i32, cur_d [B] f32): the beam-search seed.
+
+    CUDA tensors: one launch of the `greedy_descent` kernel, no host sync.
+    CPU tensors: the plain loop."""
+    max_iters = _descent_iters(config, max_iters)
+    if q.device.type == "cpu":
+        return _greedy_descent_plain(graph, config, q, stop_level, max_iters, q_norms)
+    return _descent_launch(graph, config, q, stop_level, max_iters, q_norms)[:2]
+
+
+def _greedy_descent_plain(graph, config, q, stop_level, max_iters, q_norms, visits=None):
+    """Plain version of the `greedy_descent` kernel: the batch in lockstep,
+    queries that reached their stop level frozen, K5 for the adjacency rows
+    and K1 for the distances once per step, the loop head a host sync.
+    Returns (cur, cur_d). Given a list `visits`, appends to it one pair a
+    step: the tape rows scored (ids >= 0) and the adjacency rows read, by
+    queries not yet frozen (`_descent_counters` sums them as the kernel
+    counts)."""
     B = q.shape[0]
     dev = q.device
     cur = graph.entry.clamp(min=0).expand(B).clone()
@@ -101,20 +118,84 @@ def greedy_descent(
     start = graph.max_level.clamp(min=0)
     stop = torch.as_tensor(stop_level, dtype=torch.int32, device=dev).expand(B)
     lvl = torch.maximum(start.expand(B), stop)
-    if max_iters <= 0:
-        # levels drop only on non-improving steps; improving steps are
-        # bounded by path length
-        max_iters = 8 * config.max_levels + 32
     for _ in range(max_iters):
-        if not bool((lvl > stop).any()):
+        live = lvl > stop
+        if not bool(live.any()):
             break
-        nlvl, ncur, ncur_d = _descent_step(graph, config, q, (lvl, cur, cur_d), q_norms)
-        # freeze queries that already reached their stop level
-        frozen = lvl <= stop
-        lvl = torch.where(frozen, lvl, nlvl)
-        cur = torch.where(frozen, cur, ncur)
-        cur_d = torch.where(frozen, cur_d, ncur_d)
+        # upper_row column for level `lvl` is lvl-1; only meaningful when lvl >= 1
+        col = (lvl - 1).clamp(min=0)
+        row = graph.upper_row[cur.long()].gather(1, col[:, None].long())[:, 0]
+        active = (lvl > 0) & (row >= 0)
+        neigh = gather_rows(graph.upper_adj, row)  # [B, M]
+        neigh = torch.where(active[:, None], neigh, -1)
+        nd = gather_distances(graph.vectors, neigh, q, config.metric, q_norms)
+        if visits is not None:
+            visits.append((neigh[(neigh >= 0) & live[:, None]], row[active & live]))
+        j = torch.argmin(nd, dim=1, keepdim=True)
+        best_d = nd.gather(1, j)[:, 0]
+        best_i = neigh.gather(1, j)[:, 0]
+        improved = active & (best_d < cur_d) & live
+        cur = torch.where(improved, best_i, cur)
+        cur_d = torch.where(improved, best_d, cur_d)
+        # no improvement (or no row at this level) -> drop a level; frozen
+        # queries keep theirs
+        lvl = torch.where(improved | ~live, lvl, (lvl - 1).clamp(min=0))
     return cur, cur_d
+
+
+def _descent_counters(visits) -> tuple:
+    """The kernel's three counters from `_greedy_descent_plain`'s
+    `visits`: steps (the most any query ran), tape rows scored, adjacency
+    rows read."""
+    return (len(visits), sum(int(s.numel()) for s, _ in visits),
+            sum(int(r.numel()) for _, r in visits))
+
+
+def _descent_launch(graph, config, q, stop_level, max_iters, q_norms):
+    """One launch of the `greedy_descent` kernel over the batch. Returns
+    (cur [B] i32, cur_d [B] f32, counters int64 [3]: steps, the most any
+    query ran; tape rows scored; adjacency rows read)."""
+    B, d = q.shape[0], graph.vectors.shape[1]
+    dev = q.device
+    q = q.float()
+    qn = (q * q).sum(-1) if q_norms is None else q_norms.float()
+    q, qn = csrc.operand(q), csrc.operand(qn)
+    if isinstance(stop_level, int):
+        # filled on the device: a host scalar copied up would sync the host
+        stop = torch.full((B,), stop_level, dtype=torch.int32, device=dev)
+    else:
+        stop = torch.as_tensor(stop_level, dtype=torch.int32, device=dev).expand(B)
+    stop = csrc.operand(stop)
+    table = csrc.operand(graph.vectors)
+    upper_row = graph.upper_row.contiguous()
+    upper_adj = graph.upper_adj.contiguous()
+    entry, max_level = graph.entry.contiguous(), graph.max_level.contiguous()
+    M = upper_adj.shape[1]
+    if q.shape != (B, d) or qn.shape != (B,) or stop.shape != (B,):
+        raise ValueError(f"greedy_descent: q {tuple(q.shape)}, q norms {tuple(qn.shape)}, "
+                         f"stop levels {tuple(stop.shape)} and tape {tuple(table.shape)} "
+                         f"disagree")
+    if upper_row.dtype != torch.int32 or upper_adj.dtype != torch.int32 \
+            or upper_row.dim() != 2 or upper_row.shape[0] != table.shape[0] or M < 1 \
+            or entry.dtype != torch.int32 or max_level.dtype != torch.int32 \
+            or entry.numel() != 1 or max_level.numel() != 1:
+        raise ValueError(f"greedy_descent: upper_row {tuple(upper_row.shape)} "
+                         f"{upper_row.dtype}, upper_adj {tuple(upper_adj.shape)} "
+                         f"{upper_adj.dtype}, entry {entry.dtype}, max_level "
+                         f"{max_level.dtype} do not fit a tape of {table.shape[0]} rows")
+    cur = torch.empty((B,), dtype=torch.int32, device=dev)
+    cur_d = torch.empty((B,), dtype=torch.float32, device=dev)
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    if B:
+        _DESCENT.launch(
+            (q, qn, table, upper_row, upper_adj, entry, max_level, stop),
+            q.data_ptr(), qn.data_ptr(), table.data_ptr(), upper_row.data_ptr(),
+            upper_adj.data_ptr(), entry.data_ptr(), max_level.data_ptr(), stop.data_ptr(),
+            cur.data_ptr(), cur_d.data_ptr(), counters.data_ptr(),
+            B, M, d, upper_row.shape[1], csrc.dtype_code(table.dtype),
+            METRIC_IDS[Metric.parse(config.metric)], max_iters,
+        )
+    return cur, cur_d, counters
 
 
 def _merge_sorted(a_ops, b_ops, num_out: int):
