@@ -31,9 +31,16 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     as a wave's) and the serving shape (512 queries, stop 0) on the 1M
     graph, and at edge cases on small bf16 and f32 graphs (per-query
     stops, step caps, ties, a NaN row and a NaN query, -1 padding, a graph
-    of one level, an empty graph). K1, K5 and the descent kernel are timed
-    by their device time from the profiler's trace, since their wrappers
-    take longer on the host than the kernels on the card;
+    of one level, an empty graph); then the select_neighbors kernel
+    (`check_select`) against `_select_neighbors_plain`, the eager loop
+    through K5, on the real candidate lists of the first insert wave
+    (its selection and its base back-links), of the auto build's first
+    chunk of each call, in each of the kernel's three layouts, and at the
+    gist width (960-d cosine: int8, real-valued f32 and bf16 rows), with
+    one launch and no host sync under sync debug mode "error". K1, K5, the
+    descent kernel and the select kernel are timed by their device time
+    from the profiler's trace, since their wrappers take longer on the
+    host than the kernels on the card;
  4. build and serve the flagship: a SIFT-like synthetic corpus of
     1,000,000 x 128 (the generator of bench.py, seed 0) in an int8 index
     with the f32 rerank tape, built by `HNSWIndex.build` with `auto` (on
@@ -57,15 +64,20 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     step has its launch counters zeroed before and read after, its
     seconds printed and its result checked (counts, slots, recall against
     the oracle over the live rows, no deleted row returned; every insert
-    step launches the descent kernel, and the insert step no K1); one
-    1,024-row insert runs under the profiler for its idle share;
+    step launches the descent and the select kernel, and the insert step
+    no K1); one 1,024-row insert runs under the profiler for its idle
+    share; the wave build runs again with `_select_neighbors_plain` in
+    place of the kernel and must give the same adjacency (one sha256 for
+    each);
  6. the builders: native (every host core), wave and exact over the
     first 131,071 rows of the corpus, each with its seconds and recall@10
     at ef=64; the iid arm of bench.py (standard normal x 50, seed 7) at
     262,144 x 128, m=48, built with `auto`, where the IVF lists fail their
     sampled check and the scan pass (K2) makes the candidate lists, with
     recall@10 at ef 512 and 768, the descent kernel against the eager
-    loop on its m=48 upper rows, and K2 timed at the build's shape; with
+    loop on its m=48 upper rows, the select kernel against its plain
+    version on the build's calls (m0=96), and K2 timed at the build's
+    shape; with
     `--gist`, bench.py's 1,000,000 x 960 cosine arm, made on the card;
  7. the Database (`vss_tpu_torch.Database` on the card), driven through
     SQL at the flagship's width: the 1,000,000 x 128 corpus in a table,
@@ -112,7 +124,13 @@ places. K5 copies bytes: kernel and plain version must be equal bit for
 bit. The beam_search kernel scores with K1's code, so on the card it
 must equal the eager loop through K1 and K5 exactly (distances bit for
 bit, ids, both counters); so must the greedy_descent kernel (the node
-reached, its distance bit for bit, its three counters). Against the eager
+reached, its distance bit for bit, its three counters). The select kernel
+must give the plain version's ids wherever the sums are exact
+(integer-valued rows, such as int8 rows, whose d max^2 stays under 2^24); on
+real-valued rows a keep decision at a near-tie may go either way, so each
+row that differs must have one within 1e-5 of the distances' magnitude of
+its threshold, and no more rows may differ than differ between the plain
+version on the card and on the host, plus 0.1%. Against the eager
 loop on the CPU, whose
 distances differ in the last digits, near-ties may order differently:
 there recall@10 must agree within 0.002 and the top-10 ids for 0.99.
@@ -121,6 +139,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import hashlib
+import inspect
 import itertools
 import json
 import os
@@ -134,7 +155,7 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 REL_TOL = 1e-5
 
 DEVICE = "cuda"
@@ -152,6 +173,8 @@ N_IID, IID_EFS, SCAN_BATCH, N_GIST = 262_144, (512, 768), 8192, 1_000_000
 # recall@10 at ef=64 of the 1M index built by the native builder (PR 5's
 # runs on the same corpus), beside which the auto build's is printed
 NATIVE_RECALL = 0.9618
+# check_select's gist-width shape: d, corpus rows, rows selected, candidates
+SELECT_GIST = (960, 16384, 2048, 48)
 # rows of the small graphs on which check_beam runs the wide layout's
 # deep-ef and many-slot variants
 N_BEAM_SMALL = 6000
@@ -441,8 +464,9 @@ def check_k4(dev, x, q, rng):
 def check_k5(dev, tape, rerank, adj0, rng, out_dir):
     """K5 against its plain version, bit for bit. The main shapes are the
     write path's: compaction permutes the grown tapes (twice the index's
-    capacity: ascending kept slots, then a tail of zeros), one wave's
-    `select_neighbors` gathers W x (ef_construction + M) candidate rows,
+    capacity: ascending kept slots, then a tail of zeros), the candidate
+    gather of one wave's `_select_neighbors_plain`, W x (ef_construction +
+    16) rows (on the card the select_neighbors kernel reads them itself),
     and a beam step gathers W x 4 adjacency rows. Each shape is timed
     between CUDA events and by the kernel's device time."""
     from vss_tpu_torch.ops import gather as g
@@ -595,6 +619,36 @@ def dependent_read_ns(dev) -> float:
 
     ns = cuda_ms(chase, 3) * 1e6 / steps
     log(f"dependent read from device memory: {ns:.1f} ns per step")
+    return ns
+
+
+def shared_read_ns(dev) -> float:
+    """Nanoseconds of one dependent read from shared memory: one thread
+    follows a random cycle through 12,288 int32 in shared memory
+    (`vss_shared_chase` in csrc/probe.cu), the time of 40,000 steps less
+    that of 20,000 (the copy into shared memory cancels), over 20,000."""
+    import ctypes
+
+    from vss_tpu_torch import csrc
+
+    lib = csrc.load("probe")
+    fn = lib.vss_shared_chase
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    n = 12288
+    order = torch.randperm(n, device=dev)
+    nxt = torch.empty(n, dtype=torch.int32, device=dev)
+    nxt[order] = order.roll(-1).to(torch.int32)
+    at = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def chase(steps):
+        rc = fn(nxt.data_ptr(), n, steps, at.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"shared-memory chase: launch failed ({rc})")
+
+    ns = (cuda_ms(lambda: chase(40_000), 5) - cuda_ms(lambda: chase(20_000), 5)) * 1e6 / 20_000
+    log(f"dependent read from shared memory: {ns:.2f} ns per step")
     return ns
 
 
@@ -993,6 +1047,23 @@ def descent_edge_cases(name: str, g, cfg, q) -> None:
     descent_variant(f"{name}, an empty batch", g, cfg, q[:0], 0)
 
 
+def one_launch_no_sync(fn, kname: str) -> None:
+    """`fn`, a public call on CUDA tensors, is one launch of kernel `kname`
+    and no host sync: under sync debug mode "error" PyTorch raises on a
+    synchronizing call."""
+    from vss_tpu_torch import csrc
+
+    before = {k: v.launches for k, v in csrc.KERNELS.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ran = {k: v.launches - before[k] for k, v in csrc.KERNELS.items() if v.launches != before[k]}
+    if ran != {kname: 1}:
+        fail(f"{kname} on CUDA tensors launched {ran}, not one {kname}")
+
+
 def check_descent(dev, idx, q_scaled, wave_vecs, rng, read_ns: float, out_dir: str) -> dict:
     """The greedy_descent kernel against the eager loop through K1 and K5,
     exactly (`descent_variant`), on the 1M flagship graph at the insert
@@ -1053,21 +1124,9 @@ def check_descent(dev, idx, q_scaled, wave_vecs, rng, read_ns: float, out_dir: s
                            steps=steps, rows_scored=scored, adjacency_rows=adj_rows,
                            distinct_rows=rows.numel(), distinct_adjacency_rows=adj_unique.numel())
 
-    # ---- the public call on CUDA tensors is one launch and no host sync:
-    # under sync debug mode "error" PyTorch raises on a synchronizing call
-    from vss_tpu_torch import csrc
-
     for stop in (0, wave_stop):
-        before = {k: v.launches for k, v in csrc.KERNELS.items()}
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            sr.greedy_descent(g, cfg, wq, stop_level=stop)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        ran = {k: v.launches - before[k] for k, v in csrc.KERNELS.items()
-               if v.launches != before[k]}
-        if ran != {"greedy_descent": 1}:
-            fail(f"greedy_descent on CUDA tensors launched {ran}, not one greedy_descent")
+        one_launch_no_sync(lambda: sr.greedy_descent(g, cfg, wq, stop_level=stop),
+                           "greedy_descent")
     log("  greedy_descent on CUDA tensors: one launch, no host sync (sync debug mode "
         "\"error\"), with a scalar and with a per-query stop level")
 
@@ -1087,6 +1146,411 @@ def check_descent(dev, idx, q_scaled, wave_vecs, rng, read_ns: float, out_dir: s
     return dict(ms=wave["ms"], plain_ms=wave["plain_ms"], bound_ms=wave["bound_ms"],
                 bound_by=wave["bound_by"], library_ms=None, max_abs_err=0.0,
                 dependent_read_ns=read_ns, shapes=shapes)
+
+
+@contextlib.contextmanager
+def capture_select(calls: list, first_per_shape: bool = False):
+    """Record the arguments of the builders' `select_neighbors` calls
+    (index/build.py, index/exact_build.py and through it the sharded
+    build) in `calls`, one dict each; with `first_per_shape` only the
+    first call of each (candidates, slots, candidate vectors given). The
+    calls themselves go on unchanged."""
+    from vss_tpu_torch.index import build as wb
+    from vss_tpu_torch.index import exact_build as eb
+    from vss_tpu_torch.index import select as sl
+
+    seen = set()
+    raw = []
+
+    def spy(*args, **kw):
+        # cheap, since builds are timed with the spy in place: the key from
+        # the callers' positions (cand_i, m; cand_vecs by keyword), the
+        # arguments bound to their names after the build
+        key = (args[1].shape[1], args[4], kw.get("cand_vecs") is not None)
+        if not first_per_shape or key not in seen:
+            seen.add(key)
+            raw.append((args, kw))
+        return sl.select_neighbors(*args, **kw)
+
+    wb.select_neighbors = eb.select_neighbors = spy
+    try:
+        yield calls
+    finally:
+        wb.select_neighbors = eb.select_neighbors = sl.select_neighbors
+        sig = inspect.signature(sl.select_neighbors)
+        calls += [dict(sig.bind(*a, **k).arguments) for a, k in raw]
+
+
+def _select_rows(call) -> torch.Tensor:
+    return call["cand_vecs"] if call.get("cand_vecs") is not None else call["vectors"]
+
+
+def exact_sums(call) -> bool:
+    """Every dot product and norm of the call's rows is an exact integer in
+    f32: integer-valued rows (int8 rows always) with d * max^2 under 2^24."""
+    rows = _select_rows(call)
+    x = rows.float()
+    top = float(x.abs().max()) if x.numel() else 0.0
+    return bool((x == x.round()).all()) and rows.shape[-1] * top * top < 2 ** 24
+
+
+def _select_args(call):
+    return (call["cand_i"], call["cand_d"], call["vectors"], call["m"], call["metric"])
+
+
+def _select_kw(call):
+    return {"active": call.get("active"), "cand_vecs": call.get("cand_vecs")}
+
+
+def keep_margin(call, r: int, cd_sorted, kept) -> tuple:
+    """The least gap |d - min over kept| of the keep decisions on the plain
+    version's path through row r, relative to the threshold and absolute,
+    the candidates' distances to each other recomputed in f64."""
+    from vss_tpu_torch.index.select import _INF
+    from vss_tpu_torch.ops.distance import Metric, _epilogue
+
+    m = call["m"]
+    ci, cdr = call["cand_i"][r], call["cand_d"][r]
+    C = ci.numel()
+    Cp = max(C, m)
+    ci = torch.cat([ci, ci.new_full((Cp - C,), -1)])
+    cdr = torch.where(ci >= 0, torch.cat([cdr, cdr.new_full((Cp - C,), _INF)]), _INF)
+    order = torch.sort(cdr, stable=True).indices
+    if call.get("cand_vecs") is not None:
+        v = call["cand_vecs"][r].double()
+        v = torch.cat([v, v.new_zeros((Cp - C, v.shape[1]))])[order]
+    else:
+        v = call["vectors"][ci[order].clamp(min=0).long()].double()
+    n = (v * v).sum(-1)
+    d64 = _epilogue(v @ v.T, n[:, None], n[None, :], Metric.parse(call["metric"])).cpu()
+    dc = cd_sorted[r].double().cpu().tolist()
+    kept_r = kept[r].cpu().tolist()
+    held, rel, gap = [], float("inf"), float("inf")
+    for s in range(Cp):
+        if len(held) >= m or not np.isfinite(dc[s]):
+            continue
+        if held:
+            dk = float(d64[s, held].min())
+            rel = min(rel, abs(dc[s] - dk) / max(abs(dk), 1e-30))
+            gap = min(gap, abs(dc[s] - dk))
+        if kept_r[s]:
+            held.append(s)
+    return rel, gap
+
+
+def select_scale(call) -> float:
+    """The magnitude of the call's distances, as `dist_scale` takes it for
+    the other kernels' checks: l2sq 2 max |x|^2, ip max |x|^2, cosine 1
+    (over the candidate rows)."""
+    metric = call["metric"]
+    if metric == "cosine":
+        return 1.0
+    rows = _select_rows(call)
+    ids = call["cand_i"].clamp(min=0).long()
+    x = rows.float() if call.get("cand_vecs") is not None else rows[torch.unique(ids)].float()
+    xn = float((x * x).sum(-1).max())
+    return 2 * xn if metric == "l2sq" else xn
+
+
+def plain_on_host(call) -> torch.Tensor:
+    """`_select_neighbors_plain` on the call's inputs copied to the host
+    (its sums in a third order)."""
+    from vss_tpu_torch.index import select as sl
+
+    return sl._select_neighbors_plain(
+        *(t.cpu() if isinstance(t, torch.Tensor) else t
+          for t in (call["q_vecs"], *_select_args(call))),
+        **{k: None if t is None else t.cpu() for k, t in _select_kw(call).items()})
+
+
+def select_verdict(call, out, want, stats, n_host: int) -> dict:
+    """The limits for real-valued rows, where two versions sum in other
+    orders and a keep decision at a near-tie may go either way: each row of
+    `out` that differs from `want` must have a keep decision on `want`'s
+    path within REL_TOL x the distances' magnitude (`select_scale`) of its
+    threshold (`keep_margin`, in f64), and no more rows may differ than
+    `n_host` (those that differ between the plain version on the card and
+    on the host) plus 0.1% of the rows. Returns the readings and the limits
+    broken (`faults`, empty when both hold)."""
+    A = call["cand_i"].shape[0]
+    diff = (out != want).any(1)
+    n_diff = int(diff.sum())
+    res = dict(rows=A, differ=n_diff, host_differ=n_host, tol=REL_TOL * select_scale(call),
+               worst_gap=0.0, rel_max=0.0, rel_median=0.0, faults=[])
+    if n_diff:
+        gaps = [keep_margin(call, r, *stats) for r in torch.nonzero(diff)[:, 0].tolist()]
+        res.update(worst_gap=max(g[1] for g in gaps), rel_max=max(g[0] for g in gaps),
+                   rel_median=sorted(g[0] for g in gaps)[len(gaps) // 2])
+    if res["worst_gap"] > res["tol"]:
+        res["faults"].append(f"a row differs with no keep decision within {res['tol']:.3g} of "
+                             f"its threshold (least gap {res['worst_gap']:.3g})")
+    if n_diff > n_host + 0.001 * A:
+        res["faults"].append(f"{n_diff} of {A} rows differ, more than the host's {n_host} + 0.1%")
+    return res
+
+
+def verdict_line(v: dict) -> str:
+    return (f"{v['differ']} of {v['rows']} rows differ (the plain version on the host: "
+            f"{v['host_differ']}); the least keep-decision gap of each row, absolute: largest "
+            f"{v['worst_gap']:.3g} (tol {v['tol']:.3g}); relative: largest {v['rel_max']:.3g}, "
+            f"median {v['rel_median']:.3g}")
+
+
+def select_variant(label: str, call, layout=None) -> tuple:
+    """The select_neighbors kernel against `_select_neighbors_plain` on the
+    call's inputs, through `_select_launch` (a forced `layout`, or the one
+    the kernel picks) and, without a forced layout, the public
+    `select_neighbors`. With exact sums (`exact_sums`) the ids must equal,
+    row for row; otherwise `select_verdict`'s limits hold. Returns the
+    plain version's (sorted distances, kept), the rows that differ and
+    (real-valued rows) the verdict."""
+    from vss_tpu_torch.index import select as sl
+
+    stats = []
+    want = sl._select_neighbors_plain(call["q_vecs"], *_select_args(call), stats=stats,
+                                      **_select_kw(call))
+    outs = [("_select_launch", sl._select_launch(*_select_args(call), layout=layout,
+                                                 **_select_kw(call)))]
+    if layout is None:
+        outs.append(("select_neighbors", sl.select_neighbors(call["q_vecs"], *_select_args(call),
+                                                             **_select_kw(call))))
+    torch.cuda.synchronize()
+    A = call["cand_i"].shape[0]
+    exact = exact_sums(call)
+    n_diff, verdict, n_host = 0, None, None
+    for entry, out in outs:
+        if out.shape != want.shape or out.dtype != want.dtype:
+            fail(f"select_neighbors {label}, {entry}: {tuple(out.shape)} {out.dtype} != "
+                 f"{tuple(want.shape)} {want.dtype}")
+        n_diff = int((out != want).any(1).sum())
+        if exact and n_diff:
+            fail(f"select_neighbors {label}, {entry}: {n_diff} of {A} rows differ from the plain "
+                 f"version's (exact sums)")
+        if not exact:
+            if n_host is None:
+                n_host = int((plain_on_host(call) != want.cpu()).any(1).sum())
+            verdict = select_verdict(call, out, want, stats[0], n_host)
+            log(f"  {label}, {entry}: " + verdict_line(verdict))
+            if verdict["faults"]:
+                fail(f"select_neighbors {label}, {entry}: " + "; ".join(verdict["faults"]))
+    rows = _select_rows(call)
+    log(f"  {label}: {A} rows x {call['cand_i'].shape[1]} candidates, m={call['m']}, "
+        f"{rows.dtype} d={rows.shape[-1]} {call['metric']}, layout "
+        f"{'auto' if layout is None else layout}: "
+        + ("ids equal (exact sums)" if exact else
+           f"{A - n_diff} of {A} rows equal, {n_diff} differ"
+           + (" (each at a near-tie)" if n_diff else "")))
+    return stats[0], n_diff, verdict
+
+
+def select_controls(label: str, call, stats, n_host: int) -> dict:
+    """Two versions of lower precision than the kernel, each held to
+    `select_verdict`'s limits in its place: the plain version with the
+    rows rounded to bf16, and with its candidate-to-candidate products in
+    TF32. Each must break a limit, or the limits would pass such a kernel
+    too. Returns their verdicts."""
+    from vss_tpu_torch.index import select as sl
+
+    want = sl._select_neighbors_plain(call["q_vecs"], *_select_args(call), **_select_kw(call))
+    rounded = dict(call)
+    key = "cand_vecs" if call.get("cand_vecs") is not None else "vectors"
+    rounded[key] = call[key].bfloat16().float()
+    outs = {"rows rounded to bf16": sl._select_neighbors_plain(
+        rounded["q_vecs"], *_select_args(rounded), **_select_kw(rounded))}
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 in the batched product
+    try:
+        outs["products in TF32"] = sl._select_neighbors_plain(
+            call["q_vecs"], *_select_args(call), **_select_kw(call))
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    verdicts = {}
+    for name, out in outs.items():
+        v = select_verdict(call, out, want, stats, n_host)
+        log(f"  {label}, control ({name}): " + verdict_line(v) + ": "
+            + ("; ".join(v["faults"]) if v["faults"] else "no limit broken"))
+        if not v["faults"]:
+            fail(f"select_neighbors {label}: the control with {name} breaks no limit, so the "
+                 f"limits cannot tell such a kernel from a sound one")
+        verdicts[name] = {k: v[k] for k in ("differ", "worst_gap", "tol", "host_differ")}
+    return verdicts
+
+
+def select_timing(label: str, call, stats, smem_ns: float, out_dir: str) -> dict:
+    """The kernel's device time at the call's shape (torch.profiler's
+    trace), the time between CUDA events around 20 wrapper calls, the eager
+    loop's wall time, the bound and the dependent-step floor. Bound: each
+    distinct candidate row (each given candidate vector) of the active rows
+    with a finite distance read once, ids and distances read and ids written
+    once; the multiply-adds that a decision reads (each kept candidate but
+    the m-th against each later finite one up to the row's last decision)
+    and the norms of the finite candidates up to it, at the peak rate of
+    the rows' type (int8 rows at the int8 rate; bf16 and f32 rows are
+    multiplied in f32). Floor: the longest row's chain, a dependent read of
+    shared memory for each decision (until the m-th keep) and each keep."""
+    from vss_tpu_torch.index import select as sl
+
+    cd, kept = stats
+    A, Cp = cd.shape
+    m = call["m"]
+    rows = _select_rows(call)
+    d = rows.shape[-1]
+    act = call.get("active")
+    act = torch.ones(A, dtype=torch.bool, device=cd.device) if act is None else act
+    keeps = kept & act[:, None]
+    reached = keeps.int().cumsum(1) >= m
+    # positions 0 .. visited-1 of a row are decided: up to its m-th keep
+    visited = torch.where(reached.any(1), reached.int().argmax(1) + 1, Cp)
+    decided = torch.arange(Cp, device=cd.device)[None, :] < visited[:, None]
+    fin = torch.isfinite(cd) & act[:, None] & decided
+    after = fin.flip(1).int().cumsum(1).flip(1) - fin.int()
+    products = int((after * (keeps & ~reached)).sum())
+    ops = 2.0 * d * (products + int(fin.sum()))
+    kind = "int8" if rows.dtype == torch.int8 else "f32"
+    chain = int(torch.where(act, visited + keeps.sum(1), 0).max()) if A else 0
+    ci = call["cand_i"]
+    live = (ci >= 0) & torch.isfinite(call["cand_d"]) & act[:, None]
+    row_bytes = d * rows.element_size()
+    if call.get("cand_vecs") is not None:
+        n_rows = int(live.sum())
+    else:
+        n_rows = int(torch.unique(ci[live]).numel())
+    C = ci.shape[1]
+    bytes_moved = n_rows * row_bytes + A * C * 8 + A * m * 4 + A
+    b_ms, b_by = bound(bytes_moved, ops, kind)
+    floor_ms = chain * smem_ns / 1e6
+    args, kw = _select_args(call), _select_kw(call)
+    ms = device_ms(lambda: sl._select_launch(*args, **kw), 20, "select_kernel", out_dir)
+    event_ms = cuda_ms(lambda: sl._select_launch(*args, **kw), 20)
+    plain_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sl._select_neighbors_plain(call["q_vecs"], *args, **kw)
+        torch.cuda.synchronize()
+        plain_times.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = min(plain_times)
+    log(f"  {label}: kernel {ms:.4f} ms device time ({event_ms:.4f} ms between CUDA events "
+        f"around 20 wrapper calls), eager loop {plain_ms:.3f} ms wall, bound {b_ms:.5f} ms "
+        f"({b_by}: {bytes_moved} B, {n_rows} rows of {row_bytes} B, {ops:.4g} {kind} operations, "
+        f"{products} products of the keeps), dependent-step floor {floor_ms:.5f} ms ({chain} "
+        f"steps x {smem_ns:.2f} ns), {int(keeps.sum())} keeps over {int(act.sum())} active rows")
+    return dict(shape=label, rows=A, candidates=C, m=m, ms=ms, event_ms=event_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
+                ops_kind=kind, floor_ms=floor_ms, floor_steps=chain, keeps=int(keeps.sum()),
+                active_rows=int(act.sum()))
+
+
+def select_build_calls(name: str, calls, m0: int, smem_ns: float, out_dir: str) -> list:
+    """`select_variant` on a bulk build's captured calls (`capture_select`
+    with `first_per_shape`); the refine chunk (m0 slots, no candidate
+    vectors) also timed. Returns its `select_timing`."""
+    shapes = []
+    for call in calls:
+        A, C = call["cand_i"].shape
+        given = call.get("cand_vecs") is not None
+        stats = select_variant(f"{name}: first chunk of {A} x {C}, m={call['m']}"
+                               + (", candidate vectors given" if given else ""), call)[0]
+        if call["m"] == m0 and not given:
+            shapes.append(select_timing(f"{name} refine chunk {A} x {C}, m={call['m']}, f32",
+                                        call, stats, smem_ns, out_dir))
+    return shapes
+
+
+def wave_select_calls(idx, wave_vecs) -> tuple:
+    """The select_neighbors calls of one WAVE-row insert of `wave_vecs`
+    into a clone of `idx`: (the base level's selection, the base
+    back-links' re-selection)."""
+    calls = []
+    clone = idx.clone()
+    with capture_select(calls):
+        clone.insert(wave_vecs[:WAVE], np.arange(4 * N, 4 * N + WAVE))
+    torch.cuda.synchronize()
+    m0 = idx.config.m0
+    i0 = next(i for i, c in enumerate(calls) if c["m"] == m0)
+    return calls[i0 - 1], calls[i0]
+
+
+def check_select(dev, idx, wave_vecs, build_calls, smem_ns: float, out_dir: str) -> dict:
+    """The select_neighbors kernel against `_select_neighbors_plain`
+    (`select_variant`) at the main path's shapes, with real candidate
+    lists: the first insert wave's base-level selection (WAVE x 144, m=16)
+    and base back-links (its rows x 48, cap 32, the overflow rows active),
+    taken from one wave inserted into a clone of the 1M index; the first
+    chunk of each of the auto build's calls (`build_calls`: refine, upper
+    levels, back-links with candidate vectors); each layout forced at the
+    wave's shape; the gist width (d=960, cosine) on a synthetic clustered
+    corpus: int8 tape rows, real-valued f32 candidate vectors (in each
+    layout) and a real-valued bf16 tape. The wave, back-link and refine
+    shapes are timed (`select_timing`)."""
+    from vss_tpu_torch.index import select as sl
+
+    log("select_neighbors")
+    wave_call, back_call = wave_select_calls(idx, wave_vecs)
+    if tuple(wave_call["cand_i"].shape) != (WAVE, idx.config.ef_construction + 16):
+        fail(f"select_neighbors: the wave's selection has candidates "
+             f"{tuple(wave_call['cand_i'].shape)}")
+    shapes = []
+    stats = select_variant(f"wave: {WAVE} x 144, m=16", wave_call)[0]
+    shapes.append(select_timing(f"wave {WAVE} x 144, m=16, int8", wave_call, stats, smem_ns,
+                                out_dir))
+    for layout in (1, 2):
+        select_variant(f"wave, layout {layout} forced", wave_call, layout=layout)
+    n_active = int(back_call["active"].sum())
+    stats = select_variant(f"base back-links: {back_call['cand_i'].shape[0]} x 48, cap 32, "
+                           f"{n_active} overflow rows active", back_call)[0]
+    shapes.append(select_timing(f"base back-links {back_call['cand_i'].shape[0]} x 48, cap 32",
+                                back_call, stats, smem_ns, out_dir))
+    shapes += select_build_calls("auto build", build_calls, idx.config.m0, smem_ns, out_dir)
+    one_launch_no_sync(lambda: sl.select_neighbors(wave_call["q_vecs"], *_select_args(wave_call),
+                                                   **_select_kw(wave_call)), "select_neighbors")
+    log("  select_neighbors on CUDA tensors: one launch, no host sync (sync debug mode "
+        "\"error\")")
+    gist = select_gist_width(dev)
+    wave = shapes[0]
+    return dict(ms=wave["ms"], plain_ms=wave["plain_ms"], bound_ms=wave["bound_ms"],
+                bound_by=wave["bound_by"], library_ms=None, max_abs_err=0.0,
+                floor_ms=wave["floor_ms"], shared_read_ns=smem_ns, shapes=shapes, gist=gist)
+
+
+def select_gist_width(dev) -> dict:
+    """`select_variant` at the gist width (SELECT_GIST: d=960, cosine) on
+    a synthetic clustered corpus with kNN candidate lists: int8 tape rows,
+    real-valued f32 candidate vectors (in each layout) and a real-valued
+    bf16 tape; on the f32 rows, `select_controls`. Returns the real-valued
+    variants' verdicts and the controls'."""
+    from vss_tpu_torch.ops import bruteforce_topk
+    from vss_tpu_torch.ops.distance import gathered_distances
+
+    gd, gn, ga, gc = SELECT_GIST
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cent = torch.rand((64, gd), generator=gen, device=dev)
+    gv = (cent[torch.randint(0, 64, (gn,), generator=gen, device=dev)]
+          + 0.12 * torch.randn((gn, gd), generator=gen, device=dev)).abs()
+    g8 = (gv / gv.abs().max() * 127).round().to(torch.int8)
+    _, knn = bruteforce_topk(g8[:ga].float(), g8.float(), gc + 1, "cosine", device=dev)
+    ci = knn[:, 1:].to(torch.int32).contiguous()
+    base = dict(q_vecs=gv[:ga], cand_i=ci, m=32, metric="cosine")
+    call = dict(base, vectors=g8, cand_d=gathered_distances(
+        g8[:ga].float(), g8[ci.long()].float(), "cosine"))
+    select_variant(f"gist width: int8 tape, {ga} x {gc}, d={gd}", call)
+    cv = gv[ci.long()]
+    call = dict(base, vectors=gv, cand_vecs=cv, cand_d=gathered_distances(gv[:ga], cv, "cosine"))
+    label = f"gist width: real-valued f32 candidate vectors, {ga} x {gc}, d={gd}"
+    verdicts = {}
+    for layout in (None, 1, 2):
+        stats, _, v = select_variant(label + ("" if layout is None else
+                                              f", layout {layout} forced"), call, layout=layout)
+        verdicts[f"f32, layout {layout}"] = {k: v[k] for k in ("differ", "worst_gap", "tol",
+                                                               "host_differ")}
+        if layout is None:
+            controls = select_controls(label, call, stats, v["host_differ"])
+    gb = gv.to(torch.bfloat16)
+    call = dict(base, vectors=gb, cand_d=gathered_distances(gv[:ga], gb[ci.long()].float(),
+                                                            "cosine"))
+    v = select_variant(f"gist width: real-valued bf16 tape, {ga} x {gc}, d={gd}", call)[2]
+    verdicts["bf16"] = {k: v[k] for k in ("differ", "worst_gap", "tol", "host_differ")}
+    return dict(verdicts=verdicts, controls=controls)
 
 
 # ----------------------------------------------------------------------
@@ -1183,6 +1647,19 @@ def entry_call(dev, launches, out_dir) -> dict:
             "recall_at_10": r, "profile": prof}
 
 
+def adjacency_hash(index, n: int) -> str:
+    """sha256 of the graph's adjacency over its first n slots: their levels,
+    base rows, and upper rows in level order (the scatter sinks, which
+    nothing reads, left out)."""
+    g = index.graph
+    h = hashlib.sha256()
+    up = g.upper_row[:n]
+    rows = up[up >= 0].long()
+    for t in (g.levels[:n], g.adj0[:n], up, g.upper_adj[rows]):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) -> dict:
     """Phase 5: insert, delete, insert into recycled slots, compact and a
     wave build, each step timed on the host clock (ending in a
@@ -1250,7 +1727,7 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     if self_hit < 0.9:
         fail(f"only {self_hit} of the inserted rows find themselves")
     ins = steps[f"insert {N_INSERT} rows"]["launches"]
-    for kname in ("gather_rows", "greedy_descent", "beam_search"):
+    for kname in ("gather_rows", "greedy_descent", "beam_search", "select_neighbors"):
         if ins[kname] <= 0:
             fail(f"kernel {kname} was not launched by the insert step")
     # the descent is one kernel launch a wave: K1 no longer runs there
@@ -1278,8 +1755,9 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     if idx.next_slot != n1 or idx.deleted_count != gone.size - N_RECYCLE:
         fail(f"after the recycling insert: next_slot {idx.next_slot} (expected {n1}), "
              f"tombstones {idx.deleted_count} (expected {gone.size - N_RECYCLE})")
-    if steps[f"insert {N_RECYCLE} rows into recycled slots"]["launches"]["greedy_descent"] <= 0:
-        fail("kernel greedy_descent was not launched by the recycling insert")
+    for kname in ("greedy_descent", "select_neighbors"):
+        if steps[f"insert {N_RECYCLE} rows into recycled slots"]["launches"][kname] <= 0:
+            fail(f"kernel {kname} was not launched by the recycling insert")
     live = np.concatenate([live, np.ones(N_RECYCLE, bool)])
 
     # 4. compact
@@ -1326,9 +1804,33 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
     log(f"wave build: {nb / wave_s:.1f} rows/s, recall@10 search ef={EF} {r_wave:.4f}")
     if r_wave < 0.9:
         fail(f"recall@10 of the wave-built index {r_wave} < 0.9")
-    for kname in ("greedy_descent", "beam_search"):
+    for kname in ("greedy_descent", "beam_search", "select_neighbors"):
         if steps[f"wave build of {nb} rows"]["launches"][kname] <= 0:
             fail(f"kernel {kname} was not launched by the wave build")
+    # the same build with the plain select_neighbors (the eager loop through
+    # K5) in place of the kernel: on the int8 tape the sums are exact, so
+    # the adjacency must be the same
+    from vss_tpu_torch.index import build as wb
+    from vss_tpu_torch.index import select as sl
+
+    wb.select_neighbors = sl._select_neighbors_plain
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_built = HNSWIndex.build(vecs[:nb], idx.config, method="wave", wave_size=WAVE,
+                                      device=dev)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        wb.select_neighbors = sl.select_neighbors
+    hashes = {"kernel": adjacency_hash(built, nb), "plain": adjacency_hash(plain_built, nb)}
+    log(f"wave build of {nb} rows: adjacency sha256 {hashes['kernel']} with the "
+        f"select_neighbors kernel, {hashes['plain']} with the plain version ({plain_s:.2f} s "
+        f"against {wave_s:.2f} s)")
+    if hashes["kernel"] != hashes["plain"]:
+        fail("the wave build's adjacency differs between the select_neighbors kernel and its "
+             "plain version")
+    del plain_built
     return {
         "card": smi, "steps": steps,
         "insert": {"rows": N_INSERT, "wave": WAVE, "rows_per_s": N_INSERT / ins_s,
@@ -1337,7 +1839,8 @@ def write_path(seed, idx, dev, smi, vecs, x, q_all, centers, launches, out_dir) 
         "recycle": {"rows": N_RECYCLE, "rows_per_s": N_RECYCLE / rec_s},
         "compact": {"seconds": compact_s, "rows": int(live.sum()),
                     "recall_at_10": r_compact, "scan_recall_at_10": r_compact_scan},
-        "wave_build": {"rows": nb, "seconds": wave_s, "recall_at_10": r_wave},
+        "wave_build": {"rows": nb, "seconds": wave_s, "recall_at_10": r_wave,
+                       "plain_select_seconds": plain_s, "adjacency_sha256": hashes["kernel"]},
         "profile_insert_wave": prof,
     }
 
@@ -1781,7 +2284,9 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
 
     # ---- the sharded bulk build
     idx = step("build", lambda: ShardedHNSWIndex.build(vecs, cfg, mesh))
-    need("build", "gather_rows", "scan_segmin")  # K5 in refine / back-links, K3 in repair
+    # the select_neighbors kernel in refine, upper levels and back-links, K5
+    # in the back-links, K3 in the repair
+    need("build", "gather_rows", "scan_segmin", "select_neighbors")
     if idx.count != N or idx.n_shards != SHARDS or sum(idx.next_slot) != N:
         fail(f"sharded build: {idx.count} rows on {idx.n_shards} shards {idx.next_slot}")
     build_s = steps["build"]["seconds"]
@@ -1843,7 +2348,7 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
     wrng = np.random.default_rng(seed + 4)
     new_vecs, _, _ = sift_like(wrng, N_INSERT, 0, D, centers)
     step(f"insert {N_INSERT} rows", lambda: idx.insert(new_vecs, np.arange(N, N + N_INSERT)))
-    need(f"insert {N_INSERT} rows", *graph_kernels, "greedy_descent")
+    need(f"insert {N_INSERT} rows", *graph_kernels, "greedy_descent", "select_neighbors")
     n1 = N + N_INSERT
     if idx.count != n1 or sum(idx.next_slot) != n1:
         fail(f"after the insert: {idx.count} rows, next slots {idx.next_slot}")
@@ -2140,12 +2645,15 @@ def compare_builders(dev, vecs, q_all, launches) -> dict:
     return out
 
 
-def iid_arm(dev, launches) -> dict:
+def iid_arm(dev, launches, smem_ns: float, out_dir: str) -> dict:
     """bench.py's iid corpus (standard normal x 50, seed 7) cut to N_IID
     rows, m=48, built with `auto`: the IVF lists sample below the recall
     bar there, so the scan pass (K2) makes the candidate lists. Then
-    recall@10 at the deep ef ladder of bench.py, and K2 timed at the
-    build's shape (SCAN_BATCH queries over the tape)."""
+    recall@10 at the deep ef ladder of bench.py, the select_neighbors
+    kernel against its plain version on the first chunk of each of the
+    build's calls (m0=96: refine 128 candidates, the scan pass's cap;
+    back-links 112), the refine chunk timed, and K2 timed at the build's shape (SCAN_BATCH
+    queries over the tape)."""
     from vss_tpu_torch import HNSWConfig, HNSWIndex
     from vss_tpu_torch.ops import bruteforce_topk
     from vss_tpu_torch.ops import scan as s
@@ -2154,8 +2662,14 @@ def iid_arm(dev, launches) -> dict:
     iv = rng.standard_normal((N_IID, D)).astype(np.float32) * 50.0
     iq = torch.from_numpy(rng.standard_normal((NQ, D)).astype(np.float32) * 50.0).to(dev)
     cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8", m=48)
-    index, seconds, counts = timed_build(f"iid auto build of {N_IID} rows, m=48",
-                                         lambda: HNSWIndex.build(iv, cfg, device=dev), launches)
+    calls = []
+    with capture_select(calls, first_per_shape=True):
+        index, seconds, counts = timed_build(f"iid auto build of {N_IID} rows, m=48",
+                                             lambda: HNSWIndex.build(iv, cfg, device=dev),
+                                             launches)
+    log("select_neighbors on the iid build's calls (m=48)")
+    select_shapes = select_build_calls("iid build", calls, cfg.m0, smem_ns, out_dir)
+    del calls
     stats = index.build_stats
     if stats.get("mode") != "hybrid" or not stats.get("scan_fallback"):
         fail(f"the iid build took {stats}; expected the hybrid mode with its scan fallback")
@@ -2202,6 +2716,7 @@ def iid_arm(dev, launches) -> dict:
         f"{ops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.6g}")
     return {"rows": N_IID, "m": 48, "build_seconds": seconds, "stats": dict(stats),
             "launches": counts, "recall_at_10": {str(k): v for k, v in recalls.items()},
+            "select_neighbors": select_shapes,
             "k2_build_shape": {"queries": SCAN_BATCH, "ms": ms, "tflops": ops / ms / 1e9,
                                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}}
 
@@ -2394,9 +2909,11 @@ def main() -> int:
     # before each path of the main path and read just after it.
     launches = {k: 0 for k in csrc.KERNELS}
     cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
-    idx, build_s, build_counts = timed_build(
-        f"auto build of {N} rows, M={cfg.m} m0={cfg.m0}", lambda: HNSWIndex.build(
-            vecs, cfg, device=dev), launches)
+    build_calls = []  # the first select_neighbors call of each shape, for check_select
+    with capture_select(build_calls, first_per_shape=True):
+        idx, build_s, build_counts = timed_build(
+            f"auto build of {N} rows, M={cfg.m} m0={cfg.m0}", lambda: HNSWIndex.build(
+                vecs, cfg, device=dev), launches)
     build_stats = dict(idx.build_stats)
     if idx.count != N:
         fail(f"index holds {idx.count} rows, expected {N}")
@@ -2410,9 +2927,10 @@ def main() -> int:
         f"fallback {'ran' if build_stats['scan_fallback'] else 'did not run'}, "
         f"{build_stats['bridged']} nodes bridged by the repair, {unreached} of {N} still out of "
         f"reach of the entry over base-layer edges (64 sweeps)")
-    # the sampled oracle runs the scan (K2); refine and the back-links
-    # gather candidate rows (K5)
-    for kname in ("native_segmin", "gather_rows"):
+    # the sampled oracle runs the scan (K2); refine, the upper levels and
+    # the back-links select neighbours (the select_neighbors kernel), the
+    # back-links gather their rows (K5)
+    for kname in ("native_segmin", "gather_rows", "select_neighbors"):
         if build_counts[kname] <= 0:
             fail(f"kernel {kname} was not launched by the auto build")
 
@@ -2439,6 +2957,9 @@ def main() -> int:
     results["greedy_descent"] = check_descent(
         dev, idx, q_scaled, wave_vecs, krng, results["beam_search"]["dependent_read_ns"],
         out_dir)
+    results["select_neighbors"] = check_select(dev, idx, wave_vecs, build_calls,
+                                               shared_read_ns(dev), out_dir)
+    del build_calls
     host_us = host_us_per_call(dev, idx.graph.vectors, idx.graph.adj0, q_scaled)
     torch.cuda.synchronize()
 
@@ -2555,7 +3076,8 @@ def main() -> int:
     # ---- phase 6: the builders side by side, the iid arm, and on request
     # the 960-d arm
     builds = {"builders": compare_builders(dev, vecs, q_all, launches),
-              "iid": iid_arm(dev, launches)}
+              "iid": iid_arm(dev, launches, results["select_neighbors"]["shared_read_ns"],
+                             out_dir)}
     if args.gist:
         builds["gist"] = gist_arm(dev, launches)
     log("builds: " + json.dumps(builds))
@@ -2582,12 +3104,15 @@ def main() -> int:
         "greedy_descent": ("vss_tpu_torch/csrc/descent.cu",
                            "vss_tpu/index/search.py:102-150, with vss_tpu/ops/gather.py:142 "
                            "(K1) and :39 (K5) inside its step"),
+        "select_neighbors": ("vss_tpu_torch/csrc/select.cu",
+                             "vss_tpu/index/select.py:35-105, with vss_tpu/ops/gather.py:39 "
+                             "(K5) inside"),
     }
     table = [
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
          "launches": launches[kname], **results[kname]}
         for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
-                      "gather_rows", "beam_search", "greedy_descent")
+                      "gather_rows", "beam_search", "greedy_descent", "select_neighbors")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

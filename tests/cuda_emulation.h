@@ -1,8 +1,8 @@
 // A stand-in for the CUDA toolkit's headers that lets g++ compile the
 // port's kernels (`vss_tpu_torch/csrc/*.cu`) and run them on the CPU, so
 // that a kernel's control flow and index arithmetic can be tested where
-// there is no nvcc and no card (`tests/test_torch_beam_emulated.py`,
-// `tests/test_torch_scan_emulated.py`, built by `tests/emulation.py`).
+// there is no nvcc and no card (`tests/test_torch_*_emulated.py`, built by
+// `tests/emulation.py`).
 //
 // A block's threads are cooperative fibers (ucontext) run in turn by
 // `emu_launch`; a fiber runs until it reaches a barrier, then the next one
@@ -86,13 +86,21 @@ inline float __fsqrt_rn(float a) { return sqrtf(a); }
 // the card's rsqrtf is within 2 ulp of this: tests compare with a tolerance
 inline float rsqrtf(float a) { return 1.0f / sqrtf(a); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+// four signed 8-bit products of a and b, summed into c
+inline int __dp4a(int a, int b, int c) {
+  for (int i = 0; i < 4; ++i)
+    c += static_cast<int8_t>(a >> (8 * i)) * static_cast<int8_t>(b >> (8 * i));
+  return c;
+}
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+  cudaSharedmemCarveoutMaxShared = 100
 };
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) {

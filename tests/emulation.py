@@ -64,13 +64,21 @@ def setup(work) -> None:
             (work / name).write_text(_MMA_STUB if name == "mma.cuh" else for_gpp(f.read()))
 
 
-def build(work, libraries) -> dict[str, ctypes.CDLL]:
+def build(work, libraries, edits=()) -> dict[str, ctypes.CDLL]:
     """lib<name>.so for each name, from csrc/<name>.cu, in `work` (after
-    `setup`). Each library also exports `emu_divergence_count`."""
+    `setup`). Each library also exports `emu_divergence_count`. `edits`,
+    pairs (old, new), are applied to each source first, each of them
+    required to match (a mutant of a kernel; build it in a directory of
+    its own, since a library path is loaded only once)."""
     libs = {}
     for name in libraries:
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
-            text = for_gpp(f.read())
+            text = f.read()
+        for old, new in edits:
+            if old not in text:
+                raise ValueError(f"{name}.cu has no {old!r}")
+            text = text.replace(old, new)
+        text = for_gpp(text)
         text += '\nextern "C" int emu_divergence_count() { return emu_divergences; }\n'
         (work / f"{name}.cu").write_text(text)
         libs[name] = gpp(work / f"{name}.cu", work / f"lib{name}.so")

@@ -37,6 +37,7 @@ SOURCES = {
     "distance": "distance.cu",
     "beam": "beam.cu",
     "descent": "descent.cu",
+    "select": "select.cu",
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }
@@ -183,6 +184,14 @@ class Kernel:
             self._err = err
             self._fn = fn
         return self._fn
+
+    def function(self, symbol: str, restype, argtypes: list):
+        """Another C function of this kernel's library (one that launches
+        nothing, such as a size query), with its types set."""
+        fn = getattr(load(self.library), symbol)
+        fn.restype = restype
+        fn.argtypes = argtypes
+        return fn
 
     def launch(self, operands, *args) -> None:
         """Launch on the current stream of the one CUDA device that holds
