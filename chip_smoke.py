@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --gist     # and the 1,000,000 x 960 cosine arm
     python3 chip_smoke.py --sharded-only   # phase 8 (the sharded index) alone
+    python3 chip_smoke.py --select-k-only  # the select_k kernel alone
 
 Phases, each of which fails the run (nonzero exit) on any fault:
 
@@ -37,8 +38,15 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     (its selection and its base back-links), of the auto build's first
     chunk of each call, in each of the kernel's three layouts, and at the
     gist width (960-d cosine: int8, real-valued f32 and bf16 rows), with
-    one launch and no host sync under sync debug mode "error". K1, K5, the
-    descent kernel and the select kernel are timed by their device time
+    one launch and no host sync under sync debug mode "error"; then the
+    select_k kernel (`check_select_k`) against `_select_k_plain`, values
+    bit for bit and positions equal, at every call that one batch of each
+    serving path of phase 4 makes (the scan's three selections, the pivot
+    seeding, the winnow and its rescore, the chunked oracle's blocks with
+    the mask and NaN options), in the layout the wrapper picks and the
+    other, and at edge cases (ties, +-0, +-inf, NaN, k = C, C = 1, R = 0,
+    k = 32 / 33 / 256), with one launch and no host sync. K1, K5, the
+    descent kernel and the select kernels are timed by their device time
     from the profiler's trace, since their wrappers take longer on the
     host than the kernels on the card;
  4. build and serve the flagship: a SIFT-like synthetic corpus of
@@ -52,7 +60,11 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     and the graph `search` at ef=64 (one beam_search launch per batch,
     K1 for the seed rescoring, K5 for the rerank gather) are scored by
     recall. Launch counters are zeroed just before each path and read
-    just after it. Then the forward call of `vss_tpu_torch.entry.entry()`
+    just after it. Each path then runs again with every selection by its
+    plain version (`plain_selection`: k argmin passes, a stable sort, two
+    1 GiB `torch.where`s a chunk) and with select_k, in turns,
+    with ids and distances that must agree bit for bit, and one batch of
+    each under the profiler. Then the forward call of `vss_tpu_torch.entry.entry()`
     (64 queries, k=10, ef=64 over a host-built 1,024-row graph: one
     descent launch and one beam_search launch a call) with its ms, its
     launches and its idle share;
@@ -101,7 +113,8 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     the 2,048 queries through `search` (k=10, ef=64, with the per-shard ef
     and with the full beam), `scan_search` and a filter mask that allows
     half the rows, scored against phase 4's oracle and the filtered
-    oracle; the per-shard counters; insert 32,768 rows, delete `id % 5 =
+    oracle; `scan_search` and `search` with the plain selections and
+    with select_k, in turns; the per-shard counters; insert 32,768 rows, delete `id % 5 =
     0`, compact; a forced rebalance at 65,536 rows; save and load,
     bit-equal; a `Database` with a sharded index (SQL equal to the direct
     calls, a `.vssdb` CHECKPOINT and Database.open, bit-equal, and `CREATE
@@ -1554,6 +1567,290 @@ def select_gist_width(dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the select_k kernel: the k smallest of each row, after K2, K3 and K4
+
+# the callers of select_k on the main path, by function, and what each call
+# is
+SELECT_K_SITES = {
+    "_select_subsegments": "scan_topk's segment selections (ops/scan.py:121 supers, :128 subs)",
+    "_rescore_native_block": "scan_topk's rescore (ops/scan.py:159, m rows)",
+    "pivot_seeds": "hnsw_search's pivot seeding (index/search.py:547)",
+    "bruteforce_topk": "the oracle's winnow (ops/topk.py, segments to rescore)",
+    "_rescore_block": "the oracle's winnow rescore",
+    "_bruteforce_chunked": "the oracle's chunked path over K4's blocks (mask, NaN as +inf)",
+}
+# the shapes of those calls at the flagship (512 queries, 1,000,000 rows,
+# P ~ 62,500 pivots), for `--select-k-only`, which makes them from random
+# data: (site, rows, columns, k, masked and NaN as +inf)
+SELECT_K_SHAPES = [
+    ("_select_subsegments", 512, 7813, 12, False), ("_select_subsegments", 512, 48, 12, False),
+    ("_rescore_native_block", 512, 384, 20, False),
+    ("_select_subsegments", 512, 7813, 112, False), ("_select_subsegments", 512, 448, 112, False),
+    ("_rescore_native_block", 512, 3584, 200, False),
+    ("pivot_seeds", 512, 62_500, 4, False),
+    ("bruteforce_topk", 512, 7813, 10, False), ("_rescore_block", 512, 1280, 10, False),
+    ("_bruteforce_chunked", 512, 524_288, 100, True),
+]
+
+
+@contextlib.contextmanager
+def capture_select_k(calls: dict):
+    """Record the first `select_k` call of each (caller, shape, k, options)
+    made while in place, with clones of its inputs, in `calls`; the calls
+    go on unchanged. The caller is the function that called
+    `_select_min_k` or `select_k`."""
+    from vss_tpu_torch.ops import topk
+
+    real = topk.select_k
+
+    def spy(d, k, valid=None, nan_as_inf=False):
+        frame = sys._getframe(1)
+        if frame.f_code.co_name == "_select_min_k":
+            frame = frame.f_back
+        site = frame.f_code.co_name
+        key = (site, tuple(d.shape), k, valid is not None, nan_as_inf)
+        if key not in calls:
+            calls[key] = dict(site=site, d=d.clone(), k=k, nan_as_inf=nan_as_inf,
+                              valid=None if valid is None else valid.clone())
+        return real(d, k, valid, nan_as_inf)
+
+    topk.select_k = spy
+    try:
+        yield calls
+    finally:
+        topk.select_k = real
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the last bit, NaN payloads and the sign of zero included."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def select_k_variant(label: str, d, k: int, valid=None, nan_as_inf=False, splits=None,
+                     reference=None) -> None:
+    """The select_k kernel (through `_select_k_launch`, with `splits` blocks
+    a row or the wrapper's choice) against `_select_k_plain` on the same CUDA
+    tensors (or against `reference`, a plain result computed elsewhere):
+    values bit for bit, positions equal."""
+    from vss_tpu_torch.ops import topk
+
+    got = topk._select_k_launch(d, k, valid, nan_as_inf, splits)
+    want = reference or topk._select_k_plain(d, k, valid, nan_as_inf)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], want[1].to(got[1].device)):
+        bad = int((got[1] != want[1].to(got[1].device)).any(1).sum())
+        fail(f"select_k {label}: positions differ from the plain version's in {bad} of "
+             f"{d.shape[0]} rows")
+    if not same_bits(got[0], want[0].to(got[0].device)):
+        fail(f"select_k {label}: values differ from the plain version's")
+    R, C = d.shape
+    log(f"  {label}: {R} x {C}, k={k}, splits "
+        f"{topk._select_k_splits(R, C) if splits is None else splits}"
+        f"{', masked' if valid is not None else ''}{', NaN as +inf' if nan_as_inf else ''}: "
+        f"equal (values bit for bit, positions)")
+
+
+def select_k_rows(seed: int, R: int, C: int, kind: str, dev):
+    """f32 [R, C] rows on `dev`: "normal" N(0, 1); "ties" small integers;
+    "edge" small integers with +-0, +-inf and NaN among them, a row of
+    NaN, a row of +inf and one with three values below +inf (as
+    tests/test_torch_selectk_emulated.py makes them, every NaN positive:
+    the one a card's arithmetic makes)."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return torch.from_numpy(rng.normal(size=(R, C)).astype(np.float32)).to(dev)
+    x = rng.integers(-3, 4, (R, C)).astype(np.float32)
+    if kind == "edge":
+        u = rng.random((R, C))
+        x[u < 0.1] = -0.0
+        x[(u >= 0.1) & (u < 0.2)] = 0.0
+        x[(u >= 0.2) & (u < 0.25)] = np.inf
+        x[(u >= 0.25) & (u < 0.28)] = -np.inf
+        x[(u >= 0.28) & (u < 0.33)] = np.nan
+        if R >= 4:
+            x[1] = np.nan
+            x[2] = np.inf
+            x[3] = np.inf
+            x[3, rng.choice(C, min(C, 3), replace=False)] = -1.0
+    return torch.from_numpy(x).to(dev)
+
+
+def select_k_edge_cases(dev) -> None:
+    """`select_k_variant` at the edge cases of the emulated tests, in both
+    orders and both layouts: ties, +-0, +-inf, NaN (some and all), rows of
+    +inf; k = C, k = 1, k = 32 / 33 / 256, C = 1, R = 0, k = 0; the mask
+    and NaN options; rows falling from start to end (every value passes
+    the running threshold). A NaN with its sign bit set (a host's NaN) is
+    held against the plain version on the host, and whether the plain
+    version on the card agrees is logged."""
+    from vss_tpu_torch.ops import topk
+
+    for kind in ("ties", "edge"):
+        for R, C, k, splits in ((3, 1, 1, 1), (4, 40, 40, 1), (4, 20, 20, 1), (4, 300, 150, 7),
+                                (2, 9, 9, 9), (5, 77, 1, 1), (0, 50, 10, 1), (3, 50, 0, 1),
+                                (4, 3000, 32, 1), (4, 3000, 32, 3), (4, 3000, 33, 1),
+                                (4, 3000, 33, 3), (3, 2500, 256, 1), (3, 2500, 256, 2)):
+            d = select_k_rows(R * 7 + C + k, R, C, kind, dev)
+            select_k_variant(f"{kind}", d, k, splits=splits)
+    d = select_k_rows(11, 4, 2600, "edge", dev)
+    valid = torch.from_numpy(np.random.default_rng(3).random(2600) > 0.3).to(dev)
+    valid[:5] = False
+    for k in (1, 10, 32, 33, 100):
+        for splits in (1, 3):
+            select_k_variant("edge", d, k, valid=valid, splits=splits)
+            select_k_variant("edge", d, k, nan_as_inf=True, splits=splits)
+            select_k_variant("edge", d, k, valid=valid, nan_as_inf=True, splits=splits)
+    select_k_variant("all masked", d, 40, valid=torch.zeros_like(valid), splits=2)
+    falling = -torch.arange(6000, dtype=torch.float32, device=dev).repeat(2, 1)
+    for k, splits in ((7, 1), (150, 1), (150, 2)):
+        select_k_variant("falling rows", falling, k, splits=splits)
+    neg = select_k_rows(12, 4, 500, "edge", dev)
+    neg[:, ::17] = -float("nan")
+    for k in (10, 60):
+        host = topk._select_k_plain(neg.cpu(), k)
+        card = topk._select_k_plain(neg, k)
+        agree = torch.equal(card[1].cpu(), host[1]) and same_bits(card[0].cpu(), host[0])
+        select_k_variant(f"NaN with the sign bit set (the plain version on the card "
+                         f"{'agrees' if agree else 'differs'})", neg, k, reference=host)
+
+
+def select_k_timing(label: str, call, out_dir: str) -> dict:
+    """The kernel's device time at the call's shape (torch.profiler's
+    trace, 20 launches), the plain version's and `torch.topk(largest=False,
+    sorted=True)`'s (CUDA events; not stable, so no port of the kernel,
+    but the library's yardstick), and the bound: each value read once, the
+    mask read once, the values and positions written once, over 3.35
+    TB/s (a compare a value is far below the f32 rate's time)."""
+    from vss_tpu_torch.ops import topk
+
+    d, k, valid, nan = call["d"], call["k"], call["valid"], call["nan_as_inf"]
+    R, C = d.shape
+    bytes_moved = R * C * 4 + (C if valid is not None else 0) + R * k * 8
+    b_ms, b_by = bound(bytes_moved, float(R * C), "f32")
+    ms = device_ms(lambda: topk.select_k(d, k, valid, nan), 20, "select_k_kernel", out_dir)
+    big = R * C > 1 << 26
+    plain_ms = cuda_ms(lambda: topk._select_k_plain(d, k, valid, nan), 3 if big else 10)
+    lib_ms = cuda_ms(lambda: torch.topk(d, k, dim=1, largest=False, sorted=True),
+                     5 if big else 20)
+    log(f"  {label}: kernel {ms:.5f} ms device time, bound {b_ms:.5f} ms ({b_by}, "
+        f"{bytes_moved} B), plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms")
+    return dict(shape=label, site=call["site"], rows=R, columns=C, k=k,
+                masked=valid is not None, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                plain_ms=plain_ms, library_ms=lib_ms, splits=topk._select_k_splits(R, C))
+
+
+def check_select_k(dev, calls: dict, out_dir: str) -> dict:
+    """The select_k kernel against `_select_k_plain` on the card
+    (`select_k_variant`) at every captured call (`capture_select_k`: one
+    batch of each path of phase 4, or `SELECT_K_SHAPES` made from random
+    data), in the layout the wrapper picks and in the other one; the edge
+    cases (`select_k_edge_cases`); one launch and no host sync under sync
+    debug mode "error"; each call's times (`select_k_timing`). The scan's
+    first selection (512 x 7,813, k=12) heads the kernel table."""
+    from vss_tpu_torch.ops import topk
+
+    log("select_k")
+    shapes = []
+    for call in calls.values():
+        d, k, valid, nan = call["d"], call["k"], call["valid"], call["nan_as_inf"]
+        R, C = d.shape
+        label = f"{call['site']} {R} x {C}, k={k}"
+        select_k_variant(label, d, k, valid, nan)
+        auto = topk._select_k_splits(R, C)
+        select_k_variant(label + ", other layout", d, k, valid, nan,
+                         splits=1 if auto > 1 else max(2, min(8, C // 2048)))
+        shapes.append(select_k_timing(label, call, out_dir))
+    select_k_edge_cases(dev)
+    head = next(c for c in calls.values() if c["site"] == "_select_subsegments")
+    one_launch_no_sync(lambda: topk._select_min_k(head["d"], head["k"]), "select_k")
+    chunk = [c for c in calls.values() if c["valid"] is not None]
+    if chunk:
+        c = chunk[0]
+        one_launch_no_sync(lambda: topk.select_k(c["d"], c["k"], c["valid"], True), "select_k")
+    log("  select_k on CUDA tensors: one launch, no host sync (sync debug mode \"error\")")
+    top = next(s for s in shapes if s["site"] == "_select_subsegments")
+    return dict(ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=top["library_ms"], max_abs_err=0.0,
+                shapes=shapes)
+
+
+def select_k_splits_sweep(calls: dict) -> None:
+    """The kernel's time (CUDA events, 10 launches) at each wide call's
+    shape with 1 to 16 blocks a row, beside the wrapper's choice: the data
+    for `_select_k_splits`."""
+    from vss_tpu_torch.ops import topk
+
+    for call in calls.values():
+        d, k, valid, nan = call["d"], call["k"], call["valid"], call["nan_as_inf"]
+        R, C = d.shape
+        if C < 16 * topk._SK_TILE:
+            continue
+        times = {s: round(cuda_ms(lambda: topk._select_k_launch(d, k, valid, nan, s), 10), 5)
+                 for s in (1, 2, 3, 4, 5, 6, 8, 12, 16)}
+        log(f"  splits sweep {call['site']} {R} x {C}, k={k}: ms by blocks a row {times}; "
+            f"the wrapper takes {topk._select_k_splits(R, C)}")
+
+
+def synthetic_select_k_calls(dev) -> dict:
+    """`SELECT_K_SHAPES` from random data, as `capture_select_k` records
+    calls: normal values, the chunk's mask dropping a tenth of the
+    columns."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    calls = {}
+    for site, R, C, k, opts in SELECT_K_SHAPES:
+        d = torch.randn((R, C), generator=gen, device=dev)
+        valid = torch.rand((C,), generator=gen, device=dev) > 0.1 if opts else None
+        calls[(site, (R, C), k, opts, opts)] = dict(site=site, d=d, k=k, valid=valid,
+                                                     nan_as_inf=opts)
+    return calls
+
+
+@contextlib.contextmanager
+def plain_selection():
+    """Every row-wise selection by its plain version while in place:
+    `select_k` as `_select_k_plain` (k argmin passes up to k = 32, a stable
+    sort above; the chunked oracle's mask and NaN as two `torch.where`s of
+    its whole block), as the port selected before the select_k kernel."""
+    from vss_tpu_torch.ops import topk
+
+    real = topk.select_k
+    topk.select_k = topk._select_k_plain
+    try:
+        yield
+    finally:
+        topk.select_k = real
+
+
+def before_after(label: str, fn, queries, out_dir: str) -> dict:
+    """A serving path over the query batches with the plain selections
+    (`plain_selection`, "before") and with select_k ("after"), in turns
+    (before, after, after, before): ms per batch of each (the mean of its
+    two runs), its ids equal and its distances bit for bit, and one batch
+    of each under the profiler (kernels per batch, busy ms, idle share)."""
+    ms = {"before": [], "after": []}
+    outs = {}
+    for which in ("before", "after", "after", "before"):
+        with plain_selection() if which == "before" else contextlib.nullcontext():
+            out, times = timed_batches(fn, queries)
+        ms[which].append(sum(times) / len(times))
+        outs.setdefault(which, out)
+    (bd, bi), (ad, ai) = outs["before"], outs["after"]
+    if not np.array_equal(bi, ai) or not np.array_equal(bd.view(np.int32), ad.view(np.int32)):
+        fail(f"{label}: ids or distances with select_k differ from the plain selections' "
+             f"({int((bi != ai).any(1).sum())} rows of ids)")
+    mean = {w: sum(v) / len(v) for w, v in ms.items()}
+    with plain_selection():
+        prof_b = profile_batch(f"{label}, before", fn, queries[:BATCH], mean["before"], out_dir)
+    prof_a = profile_batch(f"{label}, after", fn, queries[:BATCH], mean["after"], out_dir)
+    log(f"{label}: before {mean['before']:.3f} ms/batch {[round(t, 3) for t in ms['before']]}, "
+        f"after {mean['after']:.3f} {[round(t, 3) for t in ms['after']]}; ids and distances "
+        f"equal")
+    return {"before_ms": mean["before"], "after_ms": mean["after"], "runs": ms,
+            "before": prof_b, "after": prof_a}
+
+
+# ----------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -2342,6 +2639,12 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
         "scan": profile_batch("sharded scan_search k=10", lambda qb: idx.scan_search(qb, K),
                               q_all[:BATCH], paths[f"scan_search k={K}"]["ms_per_batch"],
                               out_dir),
+        "before_after": {
+            "scan_search k=10": before_after("sharded scan_search k=10",
+                                             lambda qb: idx.scan_search(qb, K), q_all, out_dir),
+            "search k=10 ef=64": before_after("sharded search k=10 ef=64",
+                                              lambda qb: idx.search(qb, K, ef=EF), q_all,
+                                              out_dir)},
     }
 
     # ---- writes: insert, delete, compact
@@ -2836,6 +3139,10 @@ def main() -> int:
                          "print its summary and no result line")
     ap.add_argument("--mp-worker", nargs=4, metavar=("RANK", "PORT", "DATA", "OUT"),
                     default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--select-k-only", action="store_true",
+                    help="build selectk.cu alone and run check_select_k on the main path's "
+                         "shapes made from random data, without the index build; prints the "
+                         "kernel's entry and no result line")
     ap.add_argument("--gist", action="store_true",
                     help="also build and search the 1,000,000 x 960 cosine arm (made on the "
                          "card; adds minutes)")
@@ -2864,6 +3171,8 @@ def main() -> int:
 
     # ---- phase 2: build
     libs = ["scan"] if args.k2_only else sorted(csrc.SOURCES)
+    if args.select_k_only:
+        libs = ["selectk"]
     if args.beam_serving:
         libs = ["beam", "gather"]
     log(f"build: {csrc.build(libs):.2f} s for {libs}")
@@ -2884,6 +3193,12 @@ def main() -> int:
     if args.beam_serving:
         return beam_serving(dev, vecs, queries, smi, args.beam_serving)
     out_dir = args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces")
+    if args.select_k_only:
+        log(smi)
+        calls = synthetic_select_k_calls(dev)
+        log(json.dumps({"select_k": check_select_k(dev, calls, out_dir)}))
+        select_k_splits_sweep(calls)
+        return 0
     if args.database_only:
         launches = {k: 0 for k in csrc.KERNELS}
         summary = database_phase(args.seed, dev, smi, vecs, queries, centers, launches,
@@ -2960,6 +3275,20 @@ def main() -> int:
     results["select_neighbors"] = check_select(dev, idx, wave_vecs, build_calls,
                                                shared_read_ns(dev), out_dir)
     del build_calls
+    # select_k at every call of one batch of each path of phase 4
+    sk_calls = {}
+    with capture_select_k(sk_calls):
+        idx.scan_search(q, K)
+        idx.scan_search(q, K_DEEP)
+        idx.search(q, K, ef=EF)
+        bruteforce_topk(q, x, K, "l2sq", device=dev)
+        bruteforce_topk(q, x, K_DEEP, "l2sq", device=dev)
+    torch.cuda.synchronize()
+    missing = set(SELECT_K_SITES) - {c["site"] for c in sk_calls.values()}
+    if missing:
+        fail(f"select_k: no call from {sorted(missing)} on the main path")
+    results["select_k"] = check_select_k(dev, sk_calls, out_dir)
+    del sk_calls
     host_us = host_us_per_call(dev, idx.graph.vectors, idx.graph.adj0, q_scaled)
     torch.cuda.synchronize()
 
@@ -3034,6 +3363,15 @@ def main() -> int:
         "graph": profile_batch(f"search k=10 ef={EF}", lambda qb: idx.search(qb, K, ef=EF), q,
                                graph_ms, out_dir),
     }
+    # the plain selections against select_k on each path, in one process
+    graph_path = f"search k=10 ef={EF}"
+    before_vs_after = {
+        label: before_after(label, fn, q_all, out_dir) for label, fn in (
+            ("oracle k=10", lambda qb: bruteforce_topk(qb, x, K, "l2sq", device=dev)),
+            ("oracle k=100", lambda qb: bruteforce_topk(qb, x, K_DEEP, "l2sq", device=dev)),
+            ("scan_search k=10", lambda qb: idx.scan_search(qb, K)),
+            ("scan_search k=100", lambda qb: idx.scan_search(qb, K_DEEP)),
+            (graph_path, lambda qb: idx.search(qb, K, ef=EF)))}
     summary = {
         "card": smi, "n": N, "d": D, "queries": NQ, "batch": BATCH,
         "build": {"method": "auto", "seconds": build_s, "stats": build_stats,
@@ -3046,6 +3384,7 @@ def main() -> int:
         "oracle_ms_per_batch": {"k10": gt_ms, "k100": gt100_ms},
         "launches_per_path": per_path,
         "profiles": profiles,
+        "before_after": before_vs_after,
         "host_us_per_call": host_us,
     }
     log("main path: " + json.dumps(summary))
@@ -3053,9 +3392,10 @@ def main() -> int:
         fail(f"scan recall@10 {r_scan} < 0.99")
     if r_graph < 0.85:
         fail(f"graph recall@10 {r_graph} < 0.85")
-    graph_path = f"search k=10 ef={EF}"
     needed = {"scan_segmin": ["oracle k=10"], "pairwise": ["oracle k=100"],
               "native_segmin": ["scan_search k=10"], "beam_search": [graph_path],
+              "select_k": ["oracle k=10", "oracle k=100", "scan_search k=10",
+                           "scan_search k=100", graph_path],
               # the seed rescoring and the rerank gather of the graph search
               "gather_distances": [graph_path], "gather_rows": [graph_path]}
     for kname, labels in needed.items():
@@ -3107,12 +3447,16 @@ def main() -> int:
         "select_neighbors": ("vss_tpu_torch/csrc/select.cu",
                              "vss_tpu/index/select.py:35-105, with vss_tpu/ops/gather.py:39 "
                              "(K5) inside"),
+        "select_k": ("vss_tpu_torch/csrc/selectk.cu",
+                     "vss_tpu/ops/topk.py:38 (_iter_min_k) and vss_tpu/ops/scan.py:125 "
+                     "(_select_min_k, lax.top_k above k=32): XLA after K2, K3 and K4"),
     }
     table = [
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
          "launches": launches[kname], **results[kname]}
         for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
-                      "gather_rows", "beam_search", "greedy_descent", "select_neighbors")
+                      "gather_rows", "beam_search", "greedy_descent", "select_neighbors",
+                      "select_k")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

@@ -184,6 +184,18 @@ inline V atomicMax(V* p, V v) {
   return old;
 }
 
+// one fiber runs at a time and memory is the host's: a fence orders
+// nothing that is not already in order, and a load past L1 is a load
+inline void __threadfence() {}
+template <typename V>
+inline V __ldcg(const V* p) {
+  return *p;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return cudaSuccess;
+}
+
 // ---- warp-level matrix instructions, the two functions of csrc/mma.cuh,
 // written from the PTX ISA's tables (not from any kernel). A lane's
 // 32-bit register holds two b16 values, the lower-indexed one in its low

@@ -142,3 +142,96 @@ def test_k3_plain_matches_pallas_kernel(interpret_pallas, metric):
     td, ti = ttopk._select_min_k(segmins.T.contiguous(), keep)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])
+@pytest.mark.parametrize("k,nx,chunk", [(20, 500, 128), (80, 1250, 384), (100, 1250, 384)])
+def test_bruteforce_chunked_merge_of_each_chunks_k_least(monkeypatch, metric, k, nx, chunk):
+    """The chunked path takes each chunk's stable k least (`select_k`, with
+    the tombstones and NaN read as +inf: here its plain version, in the
+    argmin order at k=20 and the sort's at 80 and 100) and merges them
+    with the running best; it must equal vss_tpu's chunked path over four
+    chunks, the last shorter than k at k=100, with a NULL query and
+    tombstones."""
+    rng = np.random.default_rng(9)
+    q = rng.normal(size=(5, 24)).astype(np.float32)
+    q[3] = np.nan
+    x = rng.normal(size=(nx, 24)).astype(np.float32)
+    x[11] = x[10]  # a tie across rows
+    vm = rng.random(nx) > 0.15
+    calls = []
+    select_k = ttopk.select_k
+
+    def spy(d, kk, valid=None, nan_as_inf=False):
+        calls.append((tuple(d.shape), kk, valid is not None, nan_as_inf))
+        return select_k(d, kk, valid, nan_as_inf)
+
+    monkeypatch.setattr(ttopk, "select_k", spy)
+    j, t = _both(q, x, k, metric, vm, chunk=chunk)
+    _check(j, t)
+    sizes = [chunk] * 3 + [nx - 3 * chunk]
+    assert calls == [((5, n), min(k, n), True, True) for n in sizes]
+    if metric != "cosine":  # the cosine guards map a NaN norm to distance 1
+        assert np.all(t[1][3] == -1)
+
+
+def _edge_rows(seed, R, C):
+    """Small integers (many ties) with +-0, +-inf and NaN among them, a row
+    of NaN and a row of +inf."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, (R, C)).astype(np.float32)
+    u = rng.random((R, C))
+    x[u < 0.1] = -0.0
+    x[(u >= 0.1) & (u < 0.2)] = 0.0
+    x[(u >= 0.2) & (u < 0.25)] = np.inf
+    x[(u >= 0.25) & (u < 0.28)] = -np.inf
+    x[(u >= 0.28) & (u < 0.32)] = np.nan
+    x[1] = np.nan
+    x[2] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 4, 12, 20, 32])
+def test_select_min_k_plain_matches_jax_iter_min_k(k):
+    """k <= 32: the k argmin passes of both packages, bit for bit: NaN
+    first by position, ties (and -0 with +0) to the lower position, then
+    (+inf, 0) once a row's other values are used up."""
+    x = _edge_rows(k, 6, 96)
+    jv, ji = jtopk._iter_min_k(jnp.asarray(x), k)
+    tv, ti = ttopk._select_min_k_plain(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy().view(np.int32), np.asarray(jv).view(np.int32))
+
+
+def _stable_order(x, zero_sign: bool):
+    """Positions of each row of x by (NaN last, value, [-0 before +0],
+    position)."""
+    pos = np.broadcast_to(np.arange(x.shape[1]), x.shape)
+    nan = np.isnan(x)
+    keys = (pos, ~np.signbit(x) if zero_sign else np.zeros(x.shape, bool),
+            np.where(nan, np.inf, x), nan)
+    return np.stack([np.lexsort(tuple(k[r] for k in keys)) for r in range(x.shape[0])])
+
+
+@pytest.mark.parametrize("k", [33, 60, 96])
+def test_select_min_k_plain_against_jax_top_k(k):
+    """k > 32: the port's stable sort against vss_tpu's `lax.top_k` of the
+    negated values (`vss_tpu/ops/scan.py:_select_min_k`). Both put NaN last
+    and +inf before it by position, and break ties of equal values by
+    position; they differ only on zeros: `lax.top_k` orders -0 before +0
+    (a total order on the negated values), the stable sort takes -0 and
+    +0 as equal, by position. Each is held to its own order, and on rows
+    whose zeros share one sign the two are equal bit for bit."""
+    import vss_tpu.ops.scan as jscan
+
+    x = _edge_rows(k, 6, 96)
+    x[3] = np.abs(x[3])  # zeros of one sign
+    jv, ji = (np.asarray(a) for a in jscan._select_min_k(jnp.asarray(x), k))
+    tv, ti = (a.numpy() for a in ttopk._select_min_k_plain(torch.from_numpy(x), k))
+    rows = np.arange(x.shape[0])[:, None]
+    np.testing.assert_array_equal(ti, _stable_order(x, False)[:, :k])
+    np.testing.assert_array_equal(ji, _stable_order(x, True)[:, :k])
+    np.testing.assert_array_equal(tv.view(np.int32), x[rows, ti].view(np.int32))
+    np.testing.assert_array_equal(jv.view(np.int32), x[rows, ji].view(np.int32))
+    np.testing.assert_array_equal(ti[2:4], ji[2:4])  # a row of +inf; one sign of zero
+    np.testing.assert_array_equal(tv[2:4].view(np.int32), jv[2:4].view(np.int32))

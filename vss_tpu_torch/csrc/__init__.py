@@ -38,6 +38,7 @@ SOURCES = {
     "beam": "beam.cu",
     "descent": "descent.cu",
     "select": "select.cu",
+    "selectk": "selectk.cu",
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }

@@ -1,0 +1,383 @@
+// select_k: the k smallest values of each row of an f32 [R, C] matrix, with
+// their positions, in one launch for the whole matrix.
+//
+// Replaces the XLA selection that follows kernels K2, K3 and K4 in the JAX
+// package: vss_tpu/ops/topk.py:_iter_min_k (:38, k passes of argmin and
+// mask) and `lax.top_k` above k = 32, which vss_tpu/ops/scan.py:125
+// (`_select_min_k`) chooses between. The port's plain versions are
+// vss_tpu_torch/ops/topk.py:_iter_min_k and _sort_min_k; this kernel gives
+// their outputs bit for bit and position for position:
+//   * k <= 32 (`iter_order`, _iter_min_k's order): every NaN first, in
+//     position order; then every value below +inf ascending, -inf least,
+//     -0 equal to +0, ties to the lower position; once those are used up,
+//     each remaining slot is (+inf, position 0), which is what argmin
+//     returns on a row of +inf;
+//   * k > 32 (_sort_min_k, torch.sort(stable=True)): values ascending,
+//     -0 equal to +0, ties by position, +inf entries by position, NaN last.
+// Both come from one order: each value gets an order-preserving 32-bit key
+// (sign flipped; -0 given +0's key; NaN the least key or the greatest, by
+// mode), and the position breaks ties, so the 64-bit composite
+// key << 32 | position is unique and the selection is stable for free. A
+// value returned is the stored one (so -0 stays -0, a NaN keeps its
+// bits), or +inf where the options below make it +inf.
+//
+// Two options serve the exact oracle's chunked path
+// (ops/topk.py:_bruteforce_chunked), so that it reads K4's distance block
+// once: a bool column mask `valid` [C] (false reads as +inf) and
+// `nan_inf` (NaN reads as +inf).
+//
+// Bound on the H100: each value is read once, 4 bytes at 3.35 TB/s: at the
+// oracle's chunk, [512, 524,288], 1.07 GB or 0.32 ms; at the pivot
+// seeding, [512, 65,536], 0.040 ms; at the scan's first selection,
+// [512, 7,813], 0.0048 ms, where a launch takes longer than the bytes.
+// Design:
+//   * one block of 256 threads a row reads the row once, 1,024 values a
+//     tile: 16-byte loads of 4 consecutive values where the row allows
+//     (C a multiple of 4), else coalesced 4-byte loads; the next tile's
+//     loads are issued before a tile is filtered. Where rows are too few
+//     to give each SM a few blocks, the wrapper splits each row over
+//     several blocks (`splits`);
+//   * a block keeps a buffer of candidate composites in shared memory and
+//     a threshold T: a value enters only if its composite is below T, and
+//     one float compare against T's value rejects most values before
+//     their composite is made. When the buffer could overflow at the next
+//     tile (or first holds k entries), it is sorted by a bitonic network
+//     and cut to its k least, and T becomes the k-th. The first tile is
+//     256 values (512 above k = 128), so the first sort is short; on rows
+//     in no particular order few values pass once T is set (about
+//     k ln(row / 256) in all). The network's stages of stride 32 or less
+//     stay inside a warp and end in a warp's barrier;
+//   * a tile's entries get their slots from a ballot per warp and one
+//     prefix over the warps' counts in shared memory, so no atomic on a
+//     shared counter serialises a tile in which every value passes;
+//   * with splits > 1 each block writes its k least to a workspace, and
+//     the block that finishes a row last (an atomic count per row, zeroed
+//     by the entry point before the launch) merges the row's splits * k
+//     partial entries by the same filter and writes the row. No second
+//     launch and no host sync;
+//   * every barrier, ballot and branch around them depends only on values
+//     every thread of the block holds alike, so control flow around them
+//     is uniform (tests/cuda_emulation.h runs nothing else).
+// Measured on the H100 (`chip_smoke.py`, PERF.md): the wide rows run at
+// about a third of the memory rate; more blocks a row do not help and
+// fewer instructions a value helped little, so the wait around each
+// tile's barrier is the likely limit (not profiled). Fusing the selection
+// into K4 is the oracle's next step.
+#include "common.cuh"
+
+namespace vss {
+
+typedef unsigned long long u64;
+
+constexpr int kSkThreads = 256;  // a block's threads
+constexpr int kSkWarps = kSkThreads / 32;
+constexpr int kSkPer = 4;  // values a thread reads per tile
+constexpr int kSkTile = kSkThreads * kSkPer;
+constexpr int kSkBuf = 2048;  // candidates a block holds
+constexpr int kSkMaxK = 256;  // the widest k; kSkBuf >= kSkMaxK + kSkTile
+constexpr u64 kNone = ~0ull;  // an empty slot: after every composite
+constexpr unsigned kKeyInf = 0xff800000u;  // the key of +inf
+
+struct SelectKArgs {
+  const float* d;        // [R, C]
+  const uint8_t* valid;  // [C] bool, or null
+  float* vals;           // [R, k]
+  int32_t* pos;          // [R, k]
+  u64* part;             // [R, splits, k]: each segment's k least
+  int* done;             // [R]: blocks of the row finished (zero at launch)
+  int64_t C;
+  int k, splits;
+  bool iter_order;  // k <= 32's order: NaN first, +inf slots at position 0
+  bool nan_inf;     // NaN reads as +inf
+};
+
+struct SelectKSmem {
+  u64 buf[kSkBuf];
+  int counts[2][kSkWarps];  // a tile's takes per warp, by tile parity
+  int last;                 // this block finished its row last
+};
+
+// The order of f32 values as an unsigned key: -0 as +0, NaN least
+// (`nan_first`) or greatest.
+__device__ __forceinline__ unsigned order_key(float v, bool nan_first) {
+  if (isnan(v)) return nan_first ? 0u : 0xffffffffu;
+  unsigned u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The least float whose key is `key` (NaN where no float compares: the
+// NaN keys, and a threshold not yet set).
+__device__ __forceinline__ float key_float(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? key & 0x7fffffffu : ~key);
+}
+
+// The values of the row. `load` reads this thread's values of the tile at
+// b0 (and their mask bytes): value v at `pos(b0, v)`, 4 consecutive
+// values in one 16-byte load where rows are 16-byte aligned (`vec`: C a
+// multiple of 4, every tile's bounds too), else every 256th. `maybe` says
+// whether a value could be below the threshold whose float is `tf` (a
+// value above it never is, and one compare rejects most values once the
+// threshold is set); `key` makes the composite, key << 32 | position,
+// which decides.
+struct RowSource {
+  struct Raw {
+    float v;
+    bool ok;
+  };
+  const float* row;
+  const uint8_t* valid;
+  bool iter_order, nan_inf, vec;
+  __device__ __forceinline__ int64_t pos(int64_t b0, int v) const {
+    return vec ? b0 + 4 * threadIdx.x + v : b0 + v * kSkThreads + threadIdx.x;
+  }
+  __device__ __forceinline__ void load(int64_t b0, int64_t b1,
+                                       Raw (&raw)[kSkPer]) const {
+    if (vec) {
+      const int64_t p = pos(b0, 0);
+      if (p < b1) {
+        const float4 f = *reinterpret_cast<const float4*>(row + p);
+        const unsigned m =
+            valid == nullptr ? 0x01010101u : *reinterpret_cast<const unsigned*>(valid + p);
+        raw[0] = Raw{f.x, (m & 0xffu) != 0};
+        raw[1] = Raw{f.y, (m & 0xff00u) != 0};
+        raw[2] = Raw{f.z, (m & 0xff0000u) != 0};
+        raw[3] = Raw{f.w, (m & 0xff000000u) != 0};
+      }
+      return;
+    }
+#pragma unroll
+    for (int v = 0; v < kSkPer; ++v) {
+      const int64_t p = pos(b0, v);
+      if (p < b1) raw[v] = Raw{row[p], valid == nullptr || valid[p] != 0};
+    }
+  }
+  __device__ __forceinline__ bool maybe(Raw r, float tf) const {
+    const float e = !r.ok || (nan_inf && isnan(r.v)) ? CUDART_INF_F : r.v;
+    return !(e > tf);
+  }
+  __device__ __forceinline__ u64 key(Raw r, int64_t p) const {
+    const bool inf = !r.ok || (nan_inf && isnan(r.v));
+    const unsigned key = inf ? kKeyInf : order_key(r.v, iter_order);
+    return (static_cast<u64>(key) << 32) | static_cast<unsigned>(p);
+  }
+};
+
+// The row's partial lists, written by the other blocks of the row.
+struct PartSource {
+  typedef u64 Raw;
+  const u64* part;
+  __device__ __forceinline__ int64_t pos(int64_t b0, int v) const {
+    return b0 + v * kSkThreads + threadIdx.x;
+  }
+  __device__ __forceinline__ void load(int64_t b0, int64_t b1, u64 (&raw)[kSkPer]) const {
+#pragma unroll
+    for (int v = 0; v < kSkPer; ++v) {
+      const int64_t p = pos(b0, v);
+      if (p < b1) raw[v] = __ldcg(part + p);
+    }
+  }
+  __device__ __forceinline__ bool maybe(u64, float) const { return true; }
+  __device__ __forceinline__ u64 key(u64 r, int64_t) const { return r; }
+};
+
+// Sort buf[0, n2) ascending (n2 a power of two) by a bitonic network. A
+// stage of stride 32 or less pairs only entries that one warp holds
+// (thread t takes pairs t, t + 256, ...: warp w the entries 64 w .. 64 w +
+// 63 of each 512), so between two such stages a warp's barrier is enough;
+// a stage of a wider stride, and the stage before one, end in the
+// block's, and so does the sort.
+__device__ __forceinline__ void bitonic_sort(u64* buf, int n2) {
+  const int tid = threadIdx.x;
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < n2 / 2; i += kSkThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const u64 a = buf[lo], b = buf[hi];
+        if ((a > b) == up) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      // the next stage's stride: stride / 2, or the next size's first, size
+      const int next = stride > 1 ? stride >> 1 : size;
+      if (stride > 32 || next > 32)
+        __syncthreads();
+      else
+        __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+// Sort the n entries of the buffer and keep its k least: n becomes
+// min(n, k), and T the k-th least once there are k. n and T are alike in
+// every thread.
+__device__ __forceinline__ void reduce_buffer(SelectKSmem& s, int& n, u64& T,
+                                              int k) {
+  __syncthreads();  // the last tile's entries are in
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int i = n + static_cast<int>(threadIdx.x); i < n2; i += kSkThreads)
+    s.buf[i] = kNone;
+  __syncthreads();
+  bitonic_sort(s.buf, n2);
+  if (n > k) n = k;
+  if (n == k) T = s.buf[k - 1];
+}
+
+// Filter the composites of positions [c0, c1) into the buffer (which holds
+// n entries below T), and end with the buffer sorted and cut to its k
+// least. The first tile takes only `first` values, so that the first cut,
+// which sorts every value read so far, sorts few; each tile's loads are
+// issued before the tile before it is filtered.
+template <typename Src>
+__device__ __forceinline__ void filter(SelectKSmem& s, const Src& src,
+                                       int64_t c0, int64_t c1, int first,
+                                       int k, int& n, u64& T) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int parity = 0;
+  int64_t t0 = c0, t1 = c0 + first < c1 ? c0 + first : c1;
+  typename Src::Raw raw[kSkPer];
+  src.load(t0, t1, raw);
+  while (t0 < c1) {
+    const float tf = key_float(static_cast<unsigned>(T >> 32));
+    u64 c[kSkPer];
+#pragma unroll
+    for (int v = 0; v < kSkPer; ++v) {
+      const int64_t p = src.pos(t0, v);
+      c[v] = p < t1 && src.maybe(raw[v], tf) ? src.key(raw[v], p) : kNone;
+    }
+    const int64_t u0 = t1, u1 = t1 + kSkTile < c1 ? t1 + kSkTile : c1;
+    src.load(u0, u1, raw);
+    if (n > kSkBuf - kSkTile || (T == kNone && n >= k)) reduce_buffer(s, n, T, k);
+    unsigned take[kSkPer];
+    int mine = 0;
+#pragma unroll
+    for (int v = 0; v < kSkPer; ++v) {
+      take[v] = __ballot_sync(0xffffffffu, c[v] < T);
+      mine += __popc(take[v]);
+    }
+    if (lane == 0) s.counts[parity][warp] = mine;
+    __syncthreads();
+    int base = n, total = 0;
+#pragma unroll
+    for (int w = 0; w < kSkWarps; ++w) {
+      const int cw = s.counts[parity][w];
+      base += w < warp ? cw : 0;
+      total += cw;
+    }
+#pragma unroll
+    for (int v = 0; v < kSkPer; ++v) {
+      if ((take[v] >> lane) & 1u) s.buf[base + __popc(take[v] & below)] = c[v];
+      base += __popc(take[v]);
+    }
+    n += total;
+    parity ^= 1;
+    t0 = u0;
+    t1 = u1;
+  }
+  reduce_buffer(s, n, T, k);
+}
+
+// Row r's outputs from the sorted buffer (which holds k entries).
+__device__ __forceinline__ void write_row(const SelectKArgs& a,
+                                          const SelectKSmem& s, int64_t r) {
+  for (int i = threadIdx.x; i < a.k; i += kSkThreads) {
+    const u64 c = s.buf[i];
+    const unsigned key = static_cast<unsigned>(c >> 32);
+    int p = static_cast<int>(c & 0xffffffffull);
+    float v;
+    if (key == kKeyInf) {
+      v = CUDART_INF_F;
+      if (a.iter_order) p = 0;
+    } else {
+      v = a.d[r * a.C + p];
+    }
+    a.vals[r * a.k + i] = v;
+    a.pos[r * a.k + i] = p;
+  }
+}
+
+__global__ void __launch_bounds__(kSkThreads)
+    select_k_kernel(SelectKArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  SelectKSmem& s = *reinterpret_cast<SelectKSmem*>(smem);
+  const int64_t r = blockIdx.x / a.splits;
+  const int split = blockIdx.x % a.splits;
+  // segments of a multiple of 4 values, so that 16-byte loads stay inside
+  const int64_t seg = ((a.C + a.splits - 1) / a.splits + 3) / 4 * 4;
+  const int64_t c0 = split * seg;
+  const int64_t c1 = c0 + seg < a.C ? c0 + seg : a.C;
+  int n = 0;
+  u64 T = kNone;
+  const RowSource row{a.d + r * a.C, a.valid, a.iter_order, a.nan_inf, a.C % 4 == 0};
+  // the first cut sorts 256 values (512 above k = 128): enough that the
+  // k-th of them lets few of the next tiles' values in
+  const int first = a.k > 128 ? 2 * kSkThreads : kSkThreads;
+  filter(s, row, c0, c1, first, a.k, n, T);
+  if (a.splits == 1) {
+    write_row(a, s, r);
+    return;
+  }
+  u64* mine = a.part + (r * a.splits + split) * a.k;
+  for (int i = threadIdx.x; i < a.k; i += kSkThreads)
+    mine[i] = i < n ? s.buf[i] : kNone;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s.last = atomicAdd(a.done + r, 1) == a.splits - 1;
+  __syncthreads();
+  if (!s.last) return;
+  __threadfence();
+  n = 0;
+  T = kNone;
+  const PartSource parts{a.part + r * a.splits * a.k};
+  filter(s, parts, 0, static_cast<int64_t>(a.splits) * a.k, kSkTile, a.k, n, T);
+  write_row(a, s, r);
+}
+
+}  // namespace vss
+
+// The k smallest of each row of d [R, C] (f32, contiguous): vals [R, k]
+// f32 and pos [R, k] int32, in _iter_min_k's order (iter_order = 1) or
+// torch.sort(stable=True)'s (0). `valid` [C] bool or null: false reads as
+// +inf; nan_inf: NaN reads as +inf. With splits > 1 each row is cut into
+// that many segments, one block each, and `ws` holds R * splits * k
+// 8-byte entries followed by R ints. A shape the kernel does not take
+// (k outside 1 .. min(C, 256), C above 2^31 - 1, splits outside
+// 1 .. C, splits > 1 without a workspace) is refused before anything is
+// launched; R = 0 launches nothing.
+extern "C" int vss_select_k(const float* d, const uint8_t* valid, float* vals,
+                            int32_t* pos, void* ws, int R, int64_t C, int k,
+                            int splits, int iter_order, int nan_inf,
+                            void* stream) {
+  using namespace vss;
+  if (R < 0 || C < 1 || C > 0x7fffffffLL || k < 1 || k > kSkMaxK || k > C ||
+      splits < 1 || splits > C || (splits > 1 && ws == nullptr) ||
+      static_cast<int64_t>(R) * splits > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SelectKArgs a;
+  a.d = d, a.valid = valid, a.vals = vals, a.pos = pos;
+  a.part = static_cast<u64*>(ws);
+  a.done = splits > 1 ? reinterpret_cast<int*>(a.part + static_cast<int64_t>(R) * splits * k)
+                      : nullptr;
+  a.C = C, a.k = k, a.splits = splits;
+  a.iter_order = iter_order != 0, a.nan_inf = nan_inf != 0;
+  if (splits > 1) {
+    cudaError_t err = cudaMemsetAsync(a.done, 0, sizeof(int) * static_cast<size_t>(R), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // as many blocks on an SM as its shared memory holds
+  cudaError_t err = cudaFuncSetAttribute(
+      select_k_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  select_k_kernel<<<R * splits, kSkThreads, sizeof(SelectKSmem), s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

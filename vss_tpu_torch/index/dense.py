@@ -40,7 +40,7 @@ from vss_tpu_torch.index.graph import (
     grow_graph,
     sample_levels,
 )
-from vss_tpu_torch.index.native import build_graph_native
+from vss_tpu_torch.index.native import build_graph_native, native_available
 from vss_tpu_torch.index.search import hnsw_search
 from vss_tpu_torch.ops.distance import Metric
 from vss_tpu_torch.ops.gather import gather_rows
@@ -130,7 +130,8 @@ class HNSWIndex:
         construction on the device, `index/build.py`), 'native'
         (multithreaded C++ host builder, all cores, nondeterministic
         interleaving) or 'auto': the native builder on one thread
-        (deterministic) for n <= 8192, 'exact' above. `vectors` may be a
+        (deterministic) for n <= 8192 where it builds and loads, 'exact'
+        otherwise. `vectors` may be a
         tensor: the exact builder keeps it on its device.
         """
         on_device = isinstance(vectors, torch.Tensor)
@@ -146,7 +147,7 @@ class HNSWIndex:
         check_rowids_int32(rowids)
         native_threads = 0
         if method == "auto":
-            if n <= 8192:
+            if n <= 8192 and native_available():
                 method, native_threads = "native", 1  # deterministic
             else:
                 method = "exact"

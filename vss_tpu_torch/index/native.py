@@ -17,7 +17,7 @@ from vss_tpu_torch import csrc
 from vss_tpu_torch.index.graph import HNSWConfig, HNSWGraph, cast_to_tape, sample_levels
 from vss_tpu_torch.utils import resolve_device
 
-__all__ = ["build_graph_native"]
+__all__ = ["build_graph_native", "native_available"]
 
 _METRIC_IDS = {"l2sq": 0, "cosine": 1, "ip": 2}
 
@@ -33,6 +33,15 @@ def _lib():
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
     ]
     return fn
+
+
+def native_available() -> bool:
+    """Whether the C++ builder builds and loads here."""
+    try:
+        _lib()
+        return True
+    except csrc.NativeUnavailable:
+        return False
 
 
 def build_graph_native(

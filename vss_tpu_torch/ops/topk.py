@@ -19,6 +19,12 @@ Two paths, as in the JAX package:
     segments are then rescored exactly and reduced.
   * otherwise: chunked distances through K4 (`dispatch_pairwise`) with a
     running top-k.
+
+Every row-wise k smallest of both paths, and of `scan_topk` and the pivot
+seeding, goes through `select_k`: on CUDA one launch of the `select_k`
+kernel (`csrc/selectk.cu`, replacing the XLA selection after the TPU
+kernels, `_iter_min_k` and `lax.top_k`), bit for bit the order of
+`_select_min_k_plain`, its plain version.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from vss_tpu_torch.ops.distance import (
 )
 from vss_tpu_torch.utils import cdiv, pad_to, resolve_device, round_up
 
-__all__ = ["bruteforce_topk", "merge_topk"]
+__all__ = ["bruteforce_topk", "merge_topk", "select_k", "SELECT_K_MAX"]
 
 _INF = float("inf")
 
@@ -72,8 +78,102 @@ def _sort_min_k(d: torch.Tensor, k: int):
     return vals[:, :k], pos[:, :k].to(torch.int32)
 
 
-def _select_min_k(d: torch.Tensor, k: int):
+def _select_min_k_plain(d: torch.Tensor, k: int):
+    """The k smallest along dim 1 as the JAX package selects them: k
+    argmin passes up to k = 32, one stable sort above. The CPU path of
+    `_select_min_k` and the reference for the `select_k` kernel."""
     return _iter_min_k(d, k) if k <= _ITER_K_MAX else _sort_min_k(d, k)
+
+
+def _select_min_k(d: torch.Tensor, k: int):
+    """The k smallest along dim 1 of f32 `d` [R, C], in
+    `_select_min_k_plain`'s order: (values, int32 positions), by
+    `select_k`."""
+    return select_k(d, k)
+
+
+# the widest k the select_k kernel takes (csrc/selectk.cu): scan_topk at
+# SCAN_K_MAX = 128 keeps up to 256 segments (HNSWIndex.scan_search keeps
+# 2k) and reranks m = 256 rows
+SELECT_K_MAX = 256
+
+_SELECT_K = csrc.register(csrc.Kernel(
+    "select_k", "selectk", "vss_select_k",
+    [csrc.PTR] * 5 + [csrc.I32, csrc.I64] + [csrc.I32] * 4,
+))
+
+# values one block of select_k reads per tile (csrc/selectk.cu kSkTile)
+_SK_TILE = 1024
+
+
+def _select_k_splits(rows: int, cols: int) -> int:
+    """Blocks per row for select_k: one, unless rows are too few to give
+    the card's 132 SMs about 4 blocks each (512 in all); then enough for
+    that, each reading at least 16 tiles of its row. On the H100 a row of
+    512 x 524,288 (or of 512 x 65,536) in one block took less time than
+    split over 2 to 16 (`chip_smoke.py --select-k-only`'s sweep)."""
+    return max(1, min(cdiv(512, max(rows, 1)), cols // (16 * _SK_TILE)))
+
+
+def _select_k_plain(d, k: int, valid=None, nan_as_inf: bool = False):
+    """Plain version of the select_k kernel: the masked columns and (with
+    `nan_as_inf`) NaN made +inf, then `_select_min_k_plain` (k = 0: empty)."""
+    if k == 0:
+        return (torch.empty((d.shape[0], 0), dtype=d.dtype, device=d.device),
+                torch.empty((d.shape[0], 0), dtype=torch.int32, device=d.device))
+    if valid is not None:
+        d = torch.where(valid[None, :], d, _INF)
+    if nan_as_inf:
+        d = torch.where(torch.isnan(d), _INF, d)
+    return _select_min_k_plain(d, k)
+
+
+def select_k(d: torch.Tensor, k: int, valid: Optional[torch.Tensor] = None,
+             nan_as_inf: bool = False):
+    """The k smallest of each row of f32 `d` [R, C] (k <= C): (values
+    [R, k] f32, positions [R, k]
+    int32) in `_select_min_k_plain`'s order, bit for bit. `valid` [C]
+    bool: false reads as +inf; `nan_as_inf`: NaN reads as +inf; a value so
+    read comes back as +inf. CUDA tensors with k <= SELECT_K_MAX: one
+    launch of the `select_k` kernel, no host sync. Above SELECT_K_MAX (as
+    the JAX package above k = 32), and for CPU tensors, `_select_k_plain`:
+    above k = 32 that is one stable sort."""
+    if d.device.type == "cpu" or k > SELECT_K_MAX:
+        return _select_k_plain(d, k, valid, nan_as_inf)
+    return _select_k_launch(d, k, valid, nan_as_inf)
+
+
+def _select_k_launch(d, k: int, valid, nan_as_inf: bool, splits: Optional[int] = None):
+    """One launch of the `select_k` kernel with `splits` blocks a row
+    (default `_select_k_splits`'s choice; tests force either layout)."""
+    if d.dim() != 2 or d.dtype != torch.float32:
+        raise ValueError(f"select_k: d must be a 2-D f32 tensor, got {d.dtype} "
+                         f"{tuple(d.shape)}")
+    R, C = d.shape
+    if not 0 <= k <= min(C, SELECT_K_MAX) or C >= 2 ** 31 \
+            or (valid is not None and valid.shape != (C,)):
+        raise ValueError(f"select_k: k={k} for d {tuple(d.shape)} (k <= min(C, "
+                         f"{SELECT_K_MAX})), valid "
+                         f"{None if valid is None else tuple(valid.shape)}")
+    vals = torch.empty((R, k), dtype=torch.float32, device=d.device)
+    pos = torch.empty((R, k), dtype=torch.int32, device=d.device)
+    if R == 0 or k == 0:
+        return vals, pos
+    splits = _select_k_splits(R, C) if splits is None else splits
+    d = csrc.operand(d)
+    operands = [d, vals, pos]
+    vptr = wptr = None
+    if valid is not None:
+        valid = csrc.operand(valid.to(torch.bool))
+        operands.append(valid)
+        vptr = valid.data_ptr()
+    if splits > 1:
+        ws = torch.empty((R * splits * k * 8 + R * 4,), dtype=torch.uint8, device=d.device)
+        operands.append(ws)
+        wptr = ws.data_ptr()
+    _SELECT_K.launch(operands, d.data_ptr(), vptr, vals.data_ptr(), pos.data_ptr(), wptr,
+                     R, C, k, splits, int(k <= _ITER_K_MAX), int(nan_as_inf))
+    return vals, pos
 
 
 _K3 = csrc.register(csrc.Kernel(
@@ -182,12 +282,10 @@ def _bruteforce_chunked(q, x, valid, k, metric: Metric, chunk: int):
     for start in range(0, nx, chunk):
         stop = min(start + chunk, nx)
         d = dispatch_pairwise(q, x[start:stop], metric)  # [nq, <=chunk]
-        d = torch.where(valid[None, start:stop], d, _INF)
-        d = torch.where(torch.isnan(d), _INF, d)  # NULL queries -> no matches
-        if k <= _ITER_K_MAX:
-            cd, local = _iter_min_k(d, min(k, stop - start))
-        else:
-            cd, local = d, torch.arange(stop - start, dtype=torch.int32, device=dev).expand(nq, -1)
+        # the chunk's stable k least, tombstones and NaN (NULL queries: no
+        # matches) read as +inf; the stable k least of the concatenation
+        # below are those of all rows so far
+        cd, local = select_k(d, min(k, stop - start), valid[start:stop], nan_as_inf=True)
         # stable merge: earlier (lower-id) candidates first
         cat_d = torch.cat([best_d, cd], 1)
         cat_i = torch.cat([best_i, local + start], 1)
