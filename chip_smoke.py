@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gist     # and the 1,000,000 x 960 cosine arm
     python3 chip_smoke.py --sharded-only   # phase 8 (the sharded index) alone
     python3 chip_smoke.py --select-k-only  # the select_k kernel alone
+    python3 chip_smoke.py --pairwise-topk-only  # the pairwise_topk kernel alone
 
 Phases, each of which fails the run (nonzero exit) on any fault:
 
@@ -45,10 +46,17 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     seeding, the winnow and its rescore, the chunked oracle's blocks with
     the mask and NaN options), in the layout the wrapper picks and the
     other, and at edge cases (ties, +-0, +-inf, NaN, k = C, C = 1, R = 0,
-    k = 32 / 33 / 256), with one launch and no host sync. K1, K5, the
-    descent kernel and the select kernels are timed by their device time
-    from the profiler's trace, since their wrappers take longer on the
-    host than the kernels on the card;
+    k = 32 / 33 / 256), with one launch and no host sync; then the
+    pairwise_topk kernel (`check_pairwise_topk`: K4's tile loop with the
+    oracle's selection inside) against the K4 route it replaces (K4 blocks,
+    select_k with the mask and NaN options, the stable merge, composed in
+    this script), ids and distances bit for bit, at the k=100 oracle's
+    batch over the whole tape and at the emulated tests' shapes, and
+    against its plain version within the tolerance below; one launch and
+    no host sync; its peak memory beside the route's. K1, K5, the descent
+    kernel and the select kernels are timed by their device time from the
+    profiler's trace, since their wrappers take longer on the host than the
+    kernels on the card;
  4. build and serve the flagship: a SIFT-like synthetic corpus of
     1,000,000 x 128 (the generator of bench.py, seed 0) in an int8 index
     with the f32 rerank tape, built by `HNSWIndex.build` with `auto` (on
@@ -56,7 +64,9 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     lists, a sampled check through the scan, K2, refine and back-links
     through K5, the connectivity repair), with 2,048 queries in batches
     of 512. The exact oracle (`bruteforce_topk`:
-    K3 at k=10, K4 at k=100) gives the ground truth; `scan_search` (K2)
+    K3 at k=10, pairwise_topk at k=100) gives the ground truth; at k=300
+    over the first 65,536 rows it runs K4 and the plain selection, whose
+    first 256 must equal pairwise_topk's at k=256; `scan_search` (K2)
     and the graph `search` at ef=64 (one beam_search launch per batch,
     K1 for the seed rescoring, K5 for the rerank gather) are scored by
     recall. Launch counters are zeroed just before each path and read
@@ -64,7 +74,9 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     plain version (`plain_selection`: k argmin passes, a stable sort, two
     1 GiB `torch.where`s a chunk) and with select_k, in turns,
     with ids and distances that must agree bit for bit, and one batch of
-    each under the profiler. Then the forward call of `vss_tpu_torch.entry.entry()`
+    each under the profiler; the k=100 oracle the same way with the K4
+    route before and pairwise_topk after, with the peak memory of a batch
+    of each. Then the forward call of `vss_tpu_torch.entry.entry()`
     (64 queries, k=10, ef=64 over a host-built 1,024-row graph: one
     descent launch and one beam_search launch a call) with its ms, its
     launches and its idle share;
@@ -98,7 +110,8 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     `index.search`; the 2,048-query LATERAL join through HNSW_INDEX_JOIN,
     equal to the batched `index.search`, recall@10 >= 0.85, timed and
     profiled; the same joins on an un-indexed copy (BRUTE_FORCE_TOPK,
-    `knn_join` at k=10 through K3 and at k=100 through K4, `vss_join`),
+    `knn_join` at k=10 through K3 and at k=100 through pairwise_topk,
+    `vss_join`),
     equal to the oracle; the cost model's rates measured by `calibrate()`
     and its choices, its exact scan (K2) at recall@10 >= 0.99 on the
     first 65,536 rows; `DELETE ... WHERE id % 5 = 0` and `PRAGMA
@@ -472,6 +485,204 @@ def check_k4(dev, x, q, rng):
     b_ms, b_by = bound(bytes_moved, ops, "f32")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, max_abs_err=err)
+
+
+# ----------------------------------------------------------------------
+# pairwise_topk: K4 with the exact oracle's selection inside
+
+# rows of the slice over which the k=300 oracle (above SELECT_K_MAX: K4 and
+# the plain selection) runs on the main path, so that K4 still launches there
+N_K4_PATH = 65_536
+# the shapes of tests/test_torch_pairtopk_emulated.py: nq, nx, d, k, slabs
+PAIRTOPK_EDGE_SHAPES = [
+    (37, 1001, 100, 100, 1), (37, 1001, 100, 100, 3), (130, 777, 32, 33, 2),
+    (20, 2500, 16, 256, 4), (9, 515, 48, 1, 2), (9, 515, 48, 32, 5), (6, 70, 24, 100, 1),
+    (6, 300, 24, 256, 3), (12, 2600, 16, 8, 10), (40, 3000, 32, 20, 8),
+]
+
+
+def k4_route(q, x, valid, k: int, metric: str):
+    """The exact oracle's chunked path as the parent tree ran it on the
+    card, composed here: K4 (`dispatch_pairwise`) on each `_choose_chunk`
+    block of rows, `select_k` with the tombstones and NaN as +inf, and the
+    stable merge (`_chunked_topk`)."""
+    from vss_tpu_torch.ops import distance as dd
+    from vss_tpu_torch.ops import topk as t3
+
+    return t3._chunked_topk(
+        q, x, valid, k, t3._choose_chunk(x.shape[0], q.shape[0]),
+        lambda qq, xs, kk, vs: t3.select_k(dd.dispatch_pairwise(qq, xs, metric), kk, vs,
+                                           nan_as_inf=True))
+
+
+def k4_route_bruteforce(qb, x, k: int):
+    """`bruteforce_topk(qb, x, k, "l2sq")` on its chunked path as the parent
+    tree ran it: an all-true mask, then `k4_route`."""
+    valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    return k4_route(qb.float(), x.float(), valid, k, "l2sq")
+
+
+def pairtopk_case(seed: int, nq: int, nx: int, d: int, dev):
+    """Rows and queries as the emulated tests make them: real-valued, row 5
+    repeated in the first and the last slab, a zero row, a zero query, a
+    NULL query, half the queries near rows, a tenth of the rows
+    tombstoned."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    x = rng.normal(size=(nx, d)).astype(np.float32)
+    x[min(6, nx - 1)] = x[5 % nx]
+    x[nx - 2] = x[5 % nx]
+    x[min(7, nx - 1)] = 0.0
+    q[min(2, nq - 1)] = 0.0
+    q[min(1, nq - 1)] = np.nan
+    q[nq // 2:] = x[rng.integers(0, nx, nq - nq // 2)] + rng.normal(
+        scale=0.1, size=(nq - nq // 2, d)).astype(np.float32)
+    valid = rng.random(nx) > 0.1
+    valid[5 % nx] = True
+    valid[nx - 2] = True
+    return (torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def pairtopk_variant(label: str, q, x, k: int, metric: str, valid=None, slabs=None):
+    """The pairwise_topk kernel against the K4 route on the same CUDA
+    tensors: ids equal and distances bit for bit."""
+    from vss_tpu_torch.ops import distance as dd
+    from vss_tpu_torch.ops import topk as t3
+
+    got = t3._pairwise_topk_launch(q, x, k, dd.Metric.parse(metric), valid, slabs)
+    want = k4_route(q, x, valid, k, metric)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], want[1]):
+        bad = int((got[1] != want[1]).any(1).sum())
+        fail(f"pairwise_topk {label}: ids differ from the K4 route's in {bad} of "
+             f"{q.shape[0]} rows")
+    if not same_bits(got[0], want[0]):
+        fail(f"pairwise_topk {label}: distances differ from the K4 route's")
+    log(f"  {label}: {q.shape[0]} x {x.shape[0]} x {x.shape[1]}, k={k}, {metric}, slabs "
+        f"{slabs or t3._pairwise_topk_slabs(q.shape[0], x.shape[0])}: equal (ids, distances "
+        f"bit for bit)")
+    return got
+
+
+def device_ms_of(fn, reps: int, names, per_call: int, out_dir: str) -> float:
+    """Mean device milliseconds a call of `fn` spends in the kernels whose
+    names hold any of `names` (`per_call` of them a call), from the trace;
+    fails unless the trace holds every launch (two retries)."""
+    fn()
+    for _ in range(3):
+        kernels, lost = traced(lambda: [fn() for _ in range(reps)], out_dir,
+                               "device_ms_" + "_".join(names))
+        durs = [e["dur"] for e in kernels if any(n in e.get("name", "") for n in names)]
+        if len(durs) == reps * per_call and not lost:
+            return sum(durs) / reps / 1e3
+    fail(f"device time of {names}: the profiler's trace lost launches three times")
+
+
+def peak_mb(fn) -> float:
+    """MB allocated at the peak of one call of `fn`, above what was
+    allocated before it (`torch.cuda.max_memory_allocated`)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def check_pairwise_topk(dev, x, q, rng, out_dir) -> dict:
+    """The pairwise_topk kernel against the K4 route it replaces, bit for
+    bit: at the main shape (the k=100 oracle's batch over the whole tape,
+    unmasked as `bruteforce_topk` calls it, with tombstones, and at k=256)
+    and at the emulated tests' shapes for each metric, an all-masked tape,
+    a tape of few distinct rows, rows that each come closer; against its
+    plain version (`_pairwise_topk_plain`, cuBLAS products) within
+    check_k4's tolerance; one launch and no host sync (the oracle's public
+    call too); its device time from the trace (both launches) beside the
+    K4 route's (K4 and select_k device time, and the route's CUDA-event
+    time), the plain version's, `torch.cdist` + `torch.topk` (context: no
+    one call computes the function), and the peak memory of a call of
+    each."""
+    from vss_tpu_torch.ops import bruteforce_topk
+    from vss_tpu_torch.ops import distance as dd
+    from vss_tpu_torch.ops import topk as t3
+
+    log("pairwise_topk")
+    k = K_DEEP
+    nq, d = q.shape
+    nx = x.shape[0]
+    valid = torch.ones(nx, dtype=torch.bool, device=dev)
+    got = pairtopk_variant("main", q, x, k, "l2sq", valid)
+    tomb = torch.from_numpy(rng.random(nx) > 0.05).to(dev)
+    pairtopk_variant("main, 5% tombstoned", q, x, k, "l2sq", tomb)
+    pairtopk_variant("main", q, x, 256, "l2sq", valid)
+    for nq_, nx_, d_, k_, slabs in PAIRTOPK_EDGE_SHAPES:
+        qq, xx, vv = pairtopk_case(nq_ * 7 + nx_ + k_, nq_, nx_, d_, dev)
+        for metric in ("l2sq", "cosine", "ip"):
+            pairtopk_variant("edge", qq, xx, k_, metric, vv, slabs)
+    qq, xx, _ = pairtopk_case(3, 5, 400, 16, dev)
+    pairtopk_variant("all masked", qq, xx, 40, "l2sq", torch.zeros(400, dtype=torch.bool,
+                                                                   device=dev), 3)
+    few = torch.from_numpy(np.random.default_rng(5).normal(size=(5, 32)).astype(np.float32))
+    xx = few[torch.from_numpy(np.random.default_rng(6).integers(0, 5, 900))].to(dev)
+    qq = torch.from_numpy(np.random.default_rng(7).normal(size=(11, 32)).astype(np.float32)).to(
+        dev)
+    for k_, slabs in ((33, 1), (100, 4), (256, 4)):
+        pairtopk_variant("five distinct rows", qq, xx, k_, "cosine", None, slabs)
+    u = np.random.default_rng(8).normal(size=(1, 16)).astype(np.float32)
+    xx = torch.from_numpy(u * np.linspace(50.0, 0.5, 1200, dtype=np.float32)[:, None]).to(dev)
+    qq = torch.from_numpy(np.repeat(u * 0.25, 3, axis=0)).to(dev)
+    for k_, slabs in ((33, 1), (256, 2)):
+        pairtopk_variant("rows ever closer", qq, xx, k_, "l2sq", None, slabs)
+    want = t3._pairwise_topk_plain(q, x, k, "l2sq", valid)
+    err = compare("main against the plain version", got[0], want[0], dist_scale(q, x, "l2sq"))
+    # where the ids differ, the distances in those slots agree within the
+    # tolerance (compare above): rows at near-equal distances that the
+    # other order of the sums swapped
+    agree = float((got[1] == want[1]).float().mean())
+    log(f"  main: ids equal to the plain version's in {agree:.6f} of the slots (cuBLAS sums "
+        f"in another order; near-ties may swap)")
+    if agree < 0.99:
+        fail(f"pairwise_topk: ids agree with the plain version's in only {agree}")
+    one_launch_no_sync(lambda: t3.pairwise_topk(q, x, k, "l2sq", valid), "pairwise_topk")
+    one_launch_no_sync(lambda: bruteforce_topk(q, x, k, "l2sq", device=dev), "pairwise_topk")
+    log("  pairwise_topk and bruteforce_topk(k=100) on CUDA tensors: one launch, no host sync")
+    ms = device_ms_of(lambda: t3.pairwise_topk(q, x, k, "l2sq", valid), 10,
+                      ["pairwise_topk_kernel", "pairwise_topk_merge"], 2, out_dir)
+    merge_ms = device_ms_of(lambda: t3.pairwise_topk(q, x, k, "l2sq", valid), 10,
+                            ["pairwise_topk_merge"], 1, out_dir)
+    chunk = t3._choose_chunk(nx, nq)
+    n_chunks = -(-nx // chunk)
+    route_dev_ms = device_ms_of(lambda: k4_route(q, x, valid, k, "l2sq"), 5,
+                                ["pairwise_kernel", "select_k_kernel"], 2 * n_chunks, out_dir)
+    route_ms = cuda_ms(lambda: k4_route(q, x, valid, k, "l2sq"), 5)
+    kernel_ms = cuda_ms(lambda: t3.pairwise_topk(q, x, k, "l2sq", valid), 10)
+    plain_ms = cuda_ms(lambda: t3._pairwise_topk_plain(q, x, k, "l2sq", valid), 3)
+    cdist_topk_ms = cuda_ms(lambda: torch.topk(
+        torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist"), k, dim=1, largest=False), 3)
+    peak = peak_mb(lambda: t3.pairwise_topk(q, x, k, "l2sq", valid))
+    route_peak = peak_mb(lambda: k4_route(q, x, valid, k, "l2sq"))
+    if peak * 1e6 >= nq * chunk * 4:
+        fail(f"pairwise_topk: {peak:.1f} MB at its peak, a [{nq}, {chunk}] block's worth")
+    by_k = {kk: device_ms_of(lambda: t3.pairwise_topk(q, x, kk, "l2sq", valid), 5,
+                             ["pairwise_topk_kernel", "pairwise_topk_merge"], 2, out_dir)
+            for kk in (1, 32, 256)}
+    route_by_k = {kk: cuda_ms(lambda: k4_route(q, x, valid, kk, "l2sq"), 3) for kk in (1, 32, 256)}
+    bytes_moved = (nq + nx) * d * 4 + nx + nq * k * 8
+    ops = 2.0 * nq * nx * d
+    b_ms, b_by = bound(bytes_moved, ops, "f32")
+    log(f"  {nq} x {nx} x {d}, k={k}: kernel {ms:.4f} ms device time (merge {merge_ms:.4f}; "
+        f"{kernel_ms:.4f} ms by CUDA events), bound {b_ms:.4f} ms ({b_by}); K4 route: K4 + "
+        f"select_k {route_dev_ms:.4f} ms device time, {route_ms:.4f} ms by CUDA events; plain "
+        f"{plain_ms:.4f} ms; torch.cdist + torch.topk {cdist_topk_ms:.4f} ms; peak {peak:.1f} MB "
+        f"(K4 route {route_peak:.1f} MB); k=1/32/256: {by_k} (K4 route {route_by_k})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err, merge_ms=merge_ms, cuda_event_ms=kernel_ms,
+                k4_route_device_ms=route_dev_ms, k4_route_ms=route_ms,
+                cdist_topk_ms=cdist_topk_ms, peak_mb=peak, k4_route_peak_mb=route_peak,
+                ids_equal_to_plain=agree, k=k, slabs=t3._pairwise_topk_slabs(nq, nx),
+                ms_by_k=by_k, k4_route_ms_by_k=route_by_k)
 
 
 def check_k5(dev, tape, rerank, adj0, rng, out_dir):
@@ -973,16 +1184,8 @@ def device_ms(fn, reps: int, kernel: str, out_dir: str) -> float:
     """Mean device milliseconds of the kernel whose name holds `kernel`
     over `reps` calls of `fn` after one warm-up call: each launch's own
     start and end on the card, from torch.profiler's trace, so the host's
-    launch rate does not enter. Fails unless the trace holds every launch
-    (two retries)."""
-    fn()
-    for _ in range(3):
-        kernels, lost = traced(lambda: [fn() for _ in range(reps)], out_dir,
-                               f"device_ms_{kernel}")
-        durs = [e["dur"] for e in kernels if kernel in e.get("name", "")]
-        if len(durs) == reps and not lost:
-            return sum(durs) / reps / 1e3
-    fail(f"device time of {kernel}: the profiler's trace lost launches three times")
+    launch rate does not enter (`device_ms_of`)."""
+    return device_ms_of(fn, reps, [kernel], 1, out_dir)
 
 
 def descent_variant(label: str, g, cfg, q, stop, max_iters: int = 0, q_norms=None):
@@ -1577,7 +1780,6 @@ SELECT_K_SITES = {
     "pivot_seeds": "hnsw_search's pivot seeding (index/search.py:547)",
     "bruteforce_topk": "the oracle's winnow (ops/topk.py, segments to rescore)",
     "_rescore_block": "the oracle's winnow rescore",
-    "_bruteforce_chunked": "the oracle's chunked path over K4's blocks (mask, NaN as +inf)",
 }
 # the shapes of those calls at the flagship (512 queries, 1,000,000 rows,
 # P ~ 62,500 pivots), for `--select-k-only`, which makes them from random
@@ -1589,7 +1791,6 @@ SELECT_K_SHAPES = [
     ("_rescore_native_block", 512, 3584, 200, False),
     ("pivot_seeds", 512, 62_500, 4, False),
     ("bruteforce_topk", 512, 7813, 10, False), ("_rescore_block", 512, 1280, 10, False),
-    ("_bruteforce_chunked", 512, 524_288, 100, True),
 ]
 
 
@@ -1822,32 +2023,42 @@ def plain_selection():
         topk.select_k = real
 
 
-def before_after(label: str, fn, queries, out_dir: str) -> dict:
-    """A serving path over the query batches with the plain selections
-    (`plain_selection`, "before") and with select_k ("after"), in turns
-    (before, after, after, before): ms per batch of each (the mean of its
-    two runs), its ids equal and its distances bit for bit, and one batch
-    of each under the profiler (kernels per batch, busy ms, idle share)."""
+def before_after(label: str, fn, queries, out_dir: str, before_fn=None) -> dict:
+    """A serving path over the query batches "before" and "after", in turns
+    (before, after, after, before): before is `fn` with the plain
+    selections (`plain_selection`), or `before_fn` where given (the
+    parent's route, composed in this script); after is `fn`. Its ms per
+    batch (the mean of its two runs), its ids equal and its distances bit
+    for bit, one batch of each under the profiler (kernels per batch, busy
+    ms, idle share) and the peak memory of one batch of each."""
     ms = {"before": [], "after": []}
     outs = {}
+
+    def before_ctx():
+        return contextlib.nullcontext() if before_fn else plain_selection()
+
     for which in ("before", "after", "after", "before"):
-        with plain_selection() if which == "before" else contextlib.nullcontext():
-            out, times = timed_batches(fn, queries)
+        with before_ctx() if which == "before" else contextlib.nullcontext():
+            out, times = timed_batches(before_fn or fn if which == "before" else fn, queries)
         ms[which].append(sum(times) / len(times))
         outs.setdefault(which, out)
     (bd, bi), (ad, ai) = outs["before"], outs["after"]
     if not np.array_equal(bi, ai) or not np.array_equal(bd.view(np.int32), ad.view(np.int32)):
-        fail(f"{label}: ids or distances with select_k differ from the plain selections' "
+        fail(f"{label}: ids or distances after differ from before "
              f"({int((bi != ai).any(1).sum())} rows of ids)")
     mean = {w: sum(v) / len(v) for w, v in ms.items()}
-    with plain_selection():
-        prof_b = profile_batch(f"{label}, before", fn, queries[:BATCH], mean["before"], out_dir)
-    prof_a = profile_batch(f"{label}, after", fn, queries[:BATCH], mean["after"], out_dir)
+    qb = queries[:BATCH]
+    with before_ctx():
+        prof_b = profile_batch(f"{label}, before", before_fn or fn, qb, mean["before"], out_dir)
+        peak_b = peak_mb(lambda: (before_fn or fn)(qb))
+    prof_a = profile_batch(f"{label}, after", fn, qb, mean["after"], out_dir)
+    peak_a = peak_mb(lambda: fn(qb))
     log(f"{label}: before {mean['before']:.3f} ms/batch {[round(t, 3) for t in ms['before']]}, "
-        f"after {mean['after']:.3f} {[round(t, 3) for t in ms['after']]}; ids and distances "
-        f"equal")
+        f"peak {peak_b:.1f} MB; after {mean['after']:.3f} {[round(t, 3) for t in ms['after']]}, "
+        f"peak {peak_a:.1f} MB; ids and distances equal")
     return {"before_ms": mean["before"], "after_ms": mean["after"], "runs": ms,
-            "before": prof_b, "after": prof_a}
+            "before": prof_b, "after": prof_a, "before_peak_mb": peak_b,
+            "after_peak_mb": peak_a}
 
 
 # ----------------------------------------------------------------------
@@ -2294,7 +2505,7 @@ def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) ->
     if not np.array_equal(np.asarray(bf["id"], np.int64), truth[0]):
         fail("BRUTE_FORCE_TOPK differs from the oracle")
     unindexed = {}
-    for k, kname in ((K, "scan_segmin"), (K_DEEP, "pairwise")):
+    for k, kname in ((K, "scan_segmin"), (K_DEEP, "pairwise_topk")):
         kj_sql = f"SELECT l_qid, r_id FROM knn_join(queries, items_bare, qvec, vec, {k})"
         explain(db, kj_sql, "KNN_JOIN")
         label = f"knn_join k={k}"
@@ -3143,6 +3354,11 @@ def main() -> int:
                     help="build selectk.cu alone and run check_select_k on the main path's "
                          "shapes made from random data, without the index build; prints the "
                          "kernel's entry and no result line")
+    ap.add_argument("--pairwise-topk-only", action="store_true",
+                    help="build pairtopk.cu, distance.cu and selectk.cu alone and run "
+                         "check_pairwise_topk and the k=100 oracle before and after on the "
+                         "corpus, without the index build; prints the kernel's entry and no "
+                         "result line")
     ap.add_argument("--gist", action="store_true",
                     help="also build and search the 1,000,000 x 960 cosine arm (made on the "
                          "card; adds minutes)")
@@ -3173,6 +3389,8 @@ def main() -> int:
     libs = ["scan"] if args.k2_only else sorted(csrc.SOURCES)
     if args.select_k_only:
         libs = ["selectk"]
+    if args.pairwise_topk_only:
+        libs = ["pairtopk", "distance", "selectk"]
     if args.beam_serving:
         libs = ["beam", "gather"]
     log(f"build: {csrc.build(libs):.2f} s for {libs}")
@@ -3198,6 +3416,17 @@ def main() -> int:
         calls = synthetic_select_k_calls(dev)
         log(json.dumps({"select_k": check_select_k(dev, calls, out_dir)}))
         select_k_splits_sweep(calls)
+        return 0
+    if args.pairwise_topk_only:
+        log(smi)
+        x = torch.from_numpy(vecs).to(dev)
+        q_all = torch.from_numpy(queries).to(dev)
+        entry = check_pairwise_topk(dev, x, q_all[:BATCH].contiguous(),
+                                    np.random.default_rng(args.seed + 1), out_dir)
+        entry["oracle k=100"] = before_after(
+            "oracle k=100", lambda qb: bruteforce_topk(qb, x, K_DEEP, "l2sq", device=dev), q_all,
+            out_dir, before_fn=lambda qb: k4_route_bruteforce(qb, x, K_DEEP))
+        log(json.dumps({"pairwise_topk": entry}))
         return 0
     if args.database_only:
         launches = {k: 0 for k in csrc.KERNELS}
@@ -3262,6 +3491,7 @@ def main() -> int:
                                   q_scaled, krng),
         "scan_segmin": check_k3(dev, x, q, krng),
         "pairwise": check_k4(dev, x, q, krng),
+        "pairwise_topk": check_pairwise_topk(dev, x, q, krng, out_dir),
         "gather_rows": check_k5(dev, idx.graph.vectors, idx.rerank_tape, idx.graph.adj0, krng,
                                 out_dir),
         "beam_search": check_beam(dev, idx, q_scaled, krng),
@@ -3316,6 +3546,10 @@ def main() -> int:
         "oracle k=10", lambda qb: bruteforce_topk(qb, x, K, "l2sq", device=dev))
     (gt100_d, gt100_i), gt100_ms = run_path(
         "oracle k=100", lambda qb: bruteforce_topk(qb, x, K_DEEP, "l2sq", device=dev))
+    # above SELECT_K_MAX the chunked oracle keeps K4 and the plain selection
+    x_k4 = x[:N_K4_PATH]
+    (gt300_d, gt300_i), gt300_ms = run_path(
+        "oracle k=300", lambda qb: bruteforce_topk(qb, x_k4, 300, "l2sq", device=dev))
     (sc_d, sc_i), scan_ms = run_path("scan_search k=10", lambda qb: idx.scan_search(qb, K))
     (sc100_d, sc100_i), scan100_ms = run_path(
         "scan_search k=100", lambda qb: idx.scan_search(qb, K_DEEP))
@@ -3326,7 +3560,7 @@ def main() -> int:
     for label, (dd, ii, k) in {
         "oracle k=10": (gt_d, gt_i, K), "oracle k=100": (gt100_d, gt100_i, K_DEEP),
         "scan k=10": (sc_d, sc_i, K), "scan k=100": (sc100_d, sc100_i, K_DEEP),
-        "graph k=10": (gr_d, gr_i, K),
+        "graph k=10": (gr_d, gr_i, K), "oracle k=300": (gt300_d, gt300_i, 300),
     }.items():
         if dd.shape != (NQ, k) or ii.shape != (NQ, k):
             fail(f"{label}: shapes {dd.shape} {ii.shape}")
@@ -3334,11 +3568,21 @@ def main() -> int:
             fail(f"{label}: non-finite distances or ids out of range")
         if (np.diff(dd, axis=1) < 0).any():
             fail(f"{label}: distances not ascending")
-    # two independent exact paths (K3 winnow, K4 chunks) agree
+    # two independent exact paths (K3 winnow, pairwise_topk) agree
     agree = recall(gt100_i[:, :K], gt_i)
-    log(f"oracle k=10 (K3) vs first 10 of k=100 (K4): id agreement {agree:.6f}")
+    log(f"oracle k=10 (K3) vs first 10 of k=100 (pairwise_topk): id agreement {agree:.6f}")
     if agree < 0.999:
         fail("the two oracle paths disagree")
+    # K4 with the plain selection (k=300) and pairwise_topk (k=256) over the
+    # same rows: the same distances bit for bit, so the same first 256
+    from vss_tpu_torch.ops import topk as t3
+    p256 = [t.cpu().numpy() for t in t3.pairwise_topk(q_all[:BATCH], x_k4, 256, "l2sq")]
+    if not (np.array_equal(gt300_i[:BATCH, :256], p256[1])
+            and np.array_equal(gt300_d[:BATCH, :256].view(np.int32), p256[0].view(np.int32))):
+        fail("oracle k=300 (K4, plain selection) differs from pairwise_topk k=256 in its first "
+             "256")
+    log(f"oracle k=300 (K4 and the plain selection) over {N_K4_PATH} rows: its first 256 equal "
+        f"pairwise_topk k=256's, ids and distances bit for bit")
     # reference distances on a small input: 64 queries in float64 on the host
     ref = ((vecs[gt_i[:64, 0]].astype(np.float64) - queries[:64].astype(np.float64)) ** 2).sum(1)
     rel = float(np.abs(gt_d[:64, 0] - ref).max() / ref.max())
@@ -3368,10 +3612,14 @@ def main() -> int:
     before_vs_after = {
         label: before_after(label, fn, q_all, out_dir) for label, fn in (
             ("oracle k=10", lambda qb: bruteforce_topk(qb, x, K, "l2sq", device=dev)),
-            ("oracle k=100", lambda qb: bruteforce_topk(qb, x, K_DEEP, "l2sq", device=dev)),
             ("scan_search k=10", lambda qb: idx.scan_search(qb, K)),
             ("scan_search k=100", lambda qb: idx.scan_search(qb, K_DEEP)),
             (graph_path, lambda qb: idx.search(qb, K, ef=EF)))}
+    # the k=100 oracle: the parent's route (K4 blocks and select_k, composed
+    # here) before, pairwise_topk after
+    before_vs_after["oracle k=100"] = before_after(
+        "oracle k=100", lambda qb: bruteforce_topk(qb, x, K_DEEP, "l2sq", device=dev), q_all,
+        out_dir, before_fn=lambda qb: k4_route_bruteforce(qb, x, K_DEEP))
     summary = {
         "card": smi, "n": N, "d": D, "queries": NQ, "batch": BATCH,
         "build": {"method": "auto", "seconds": build_s, "stats": build_stats,
@@ -3381,7 +3629,8 @@ def main() -> int:
                       "recall_at_100": r_scan100},
         "graph": {"ef": EF, "ms_per_batch": graph_ms, "qps": BATCH / graph_ms * 1e3,
                   "recall_at_10": r_graph},
-        "oracle_ms_per_batch": {"k10": gt_ms, "k100": gt100_ms},
+        "oracle_ms_per_batch": {"k10": gt_ms, "k100": gt100_ms,
+                                f"k300 over {N_K4_PATH} rows": gt300_ms},
         "launches_per_path": per_path,
         "profiles": profiles,
         "before_after": before_vs_after,
@@ -3392,10 +3641,11 @@ def main() -> int:
         fail(f"scan recall@10 {r_scan} < 0.99")
     if r_graph < 0.85:
         fail(f"graph recall@10 {r_graph} < 0.85")
-    needed = {"scan_segmin": ["oracle k=10"], "pairwise": ["oracle k=100"],
+    needed = {"scan_segmin": ["oracle k=10"], "pairwise_topk": ["oracle k=100"],
+              "pairwise": ["oracle k=300"],
               "native_segmin": ["scan_search k=10"], "beam_search": [graph_path],
-              "select_k": ["oracle k=10", "oracle k=100", "scan_search k=10",
-                           "scan_search k=100", graph_path],
+              "select_k": ["oracle k=10", "scan_search k=10", "scan_search k=100",
+                           graph_path],
               # the seed rescoring and the rerank gather of the graph search
               "gather_distances": [graph_path], "gather_rows": [graph_path]}
     for kname, labels in needed.items():
@@ -3437,6 +3687,9 @@ def main() -> int:
         "native_segmin": ("vss_tpu_torch/csrc/scan.cu", "vss_tpu/ops/scan.py:78"),
         "scan_segmin": ("vss_tpu_torch/csrc/topk.cu", "vss_tpu/ops/topk.py:134"),
         "pairwise": ("vss_tpu_torch/csrc/distance.cu", "vss_tpu/ops/distance.py:113"),
+        "pairwise_topk": ("vss_tpu_torch/csrc/pairtopk.cu",
+                          "vss_tpu/ops/distance.py:113 (K4) with the XLA scan step of "
+                          "vss_tpu/ops/topk.py:62-100 (mask, NaN as +inf, the stable merge)"),
         "gather_rows": ("vss_tpu_torch/csrc/gather.cu", "vss_tpu/ops/gather.py:39"),
         "beam_search": ("vss_tpu_torch/csrc/beam.cu",
                         "vss_tpu/ops/gather.py:142 and :39 inside the loop of "
@@ -3455,8 +3708,8 @@ def main() -> int:
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
          "launches": launches[kname], **results[kname]}
         for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
-                      "gather_rows", "beam_search", "greedy_descent", "select_neighbors",
-                      "select_k")
+                      "pairwise_topk", "gather_rows", "beam_search", "greedy_descent",
+                      "select_neighbors", "select_k")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

@@ -8,13 +8,17 @@
 // `emu_launch`; a fiber runs until it reaches a barrier, then the next one
 // does. Every barrier, shuffle, ballot, warp reduction, `ldmatrix` and
 // `mma` (the stand-ins for csrc/mma.cuh) is a switch point, so the
-// emulation is only valid for kernels in which all threads of a block
-// reach the same sequence of such calls (uniform control flow
-// around them): the launcher counts a divergence (`emu_divergences`) and
-// gives the block up when some fibers end while others wait. Blocks run
-// one after another. It shows what a kernel computes, never how fast, and
-// it cannot show a missing barrier: between two switch points a fiber
-// runs alone.
+// emulation is only valid for kernels in which all threads of a warp
+// reach the same sequence of such calls (uniform control flow around
+// them). `__syncthreads` waits for every thread of the block: warps may
+// pass different numbers of warp-level switch points between two block
+// barriers (a warp that sorts alone, say). The launcher counts a
+// divergence (`emu_divergences`) and gives the block up when some fibers
+// end while others wait. Blocks run one after another. `cp.async` copies
+// (the stand-ins for csrc/cpasync.cuh) land only when their group is
+// awaited, so a read of a stage that was not awaited sees the old bytes.
+// It shows what a kernel computes, never how fast, and it cannot show a
+// missing barrier: between two switch points a fiber runs alone.
 #pragma once
 #include <ucontext.h>
 
@@ -23,6 +27,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
 #include <functional>
 #include <vector>
 
@@ -36,6 +41,10 @@ using std::isnan;
 #define __launch_bounds__(...)
 #define __restrict__
 #define __align__(x)
+// a block's static shared memory: blocks run one after another, so one
+// function-static object per declaration serves each block in turn (it
+// keeps the last block's bytes, as the card's holds stale ones)
+#define __shared__ static
 #define CUDART_INF_F (__builtin_inff())
 
 struct EmuDim {
@@ -55,6 +64,7 @@ struct float4 {
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
   return {x, y, z, w};
 }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct __nv_bfloat16 {
   uint16_t v;
 };
@@ -86,6 +96,8 @@ inline float __fsqrt_rn(float a) { return sqrtf(a); }
 // the card's rsqrtf is within 2 ulp of this: tests compare with a tolerance
 inline float rsqrtf(float a) { return 1.0f / sqrtf(a); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+inline int __clzll(long long v) { return v == 0 ? 64 : __builtin_clzll(static_cast<unsigned long long>(v)); }
 // four signed 8-bit products of a and b, summed into c
 inline int __dp4a(int a, int b, int c) {
   for (int i = 0; i < 4; ++i)
@@ -122,6 +134,15 @@ struct Emu {
   std::vector<char*> stacks;
   std::function<void()> body;
   unsigned char* smem = nullptr;  // the block's dynamic shared memory
+  std::vector<char> at_barrier;   // waits at __syncthreads
+  // each thread's cp.async copies: the open group, then the committed ones
+  struct Copy {
+    void* dst;
+    const void* src;
+    int bytes;
+  };
+  std::vector<std::vector<Copy>> open;
+  std::vector<std::deque<std::vector<Copy>>> committed;
 };
 constexpr int kFragWords = 6;  // an mma's A (4 words) and B (2 words)
 inline Emu emu;
@@ -130,7 +151,12 @@ inline int emu_divergences = 0;
 inline void emu_switch() {
   swapcontext(&emu.fibers[emu.current], &emu.scheduler);
 }
-inline void __syncthreads() { emu_switch(); }
+// the launcher lets a round's waiters go once every live thread waits
+inline void __syncthreads() {
+  emu.at_barrier[emu.current] = 1;
+  do emu_switch();
+  while (emu.at_barrier[emu.current]);
+}
 inline void __syncwarp() { emu_switch(); }
 
 template <typename V>
@@ -140,6 +166,30 @@ inline V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   memcpy(&emu.slots[t], &v, 4);
   emu_switch();
   const uint32_t got = emu.slots[t ^ lane_mask];
+  emu_switch();
+  V out;
+  memcpy(&out, &got, 4);
+  return out;
+}
+template <typename V>
+inline V __shfl_sync(unsigned, V v, int src) {
+  static_assert(sizeof(V) == 4, "32-bit values only");
+  const int t = emu.current;
+  memcpy(&emu.slots[t], &v, 4);
+  emu_switch();
+  const uint32_t got = emu.slots[(t & ~31) + (src & 31)];
+  emu_switch();
+  V out;
+  memcpy(&out, &got, 4);
+  return out;
+}
+template <typename V>
+inline V __shfl_up_sync(unsigned, V v, unsigned delta) {
+  static_assert(sizeof(V) == 4, "32-bit values only");
+  const int t = emu.current;
+  memcpy(&emu.slots[t], &v, 4);
+  emu_switch();
+  const uint32_t got = emu.slots[(t & 31) >= static_cast<int>(delta) ? t - delta : t];
   emu_switch();
   V out;
   memcpy(&out, &got, 4);
@@ -183,6 +233,12 @@ inline V atomicMax(V* p, V v) {
   if (v > old) *p = v;
   return old;
 }
+template <typename V>
+inline V atomicMin(V* p, V v) {
+  const V old = *p;
+  if (v < old) *p = v;
+  return old;
+}
 
 // one fiber runs at a time and memory is the host's: a fence orders
 // nothing that is not already in order, and a load past L1 is a load
@@ -194,6 +250,29 @@ inline V __ldcg(const V* p) {
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   memset(p, v, n);
   return cudaSuccess;
+}
+
+// ---- cp.async (the functions of csrc/cpasync.cuh): a copy waits in its
+// thread's open group; a commit closes the group; wait<N> lands every
+// committed group but the newest N, in order.
+inline void cp_async16(void* dst, const void* src, int src_bytes) {
+  emu.open[emu.current].push_back({dst, src, src_bytes});
+}
+inline void cp_async_commit() {
+  const int t = emu.current;
+  emu.committed[t].push_back(std::move(emu.open[t]));
+  emu.open[t].clear();
+}
+template <int N>
+inline void cp_async_wait() {
+  auto& groups = emu.committed[emu.current];
+  while (static_cast<int>(groups.size()) > N) {
+    for (const Emu::Copy& c : groups.front()) {
+      memcpy(c.dst, c.src, c.bytes);
+      memset(static_cast<char*>(c.dst) + c.bytes, 0, 16 - c.bytes);
+    }
+    groups.pop_front();
+  }
 }
 
 // ---- warp-level matrix instructions, the two functions of csrc/mma.cuh,
@@ -289,6 +368,9 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
     memset(emu.smem, 0xAB, smem_bytes);  // uninitialised, as on the card
     blockIdx.x = b;
     emu.ended.assign(block, 0);
+    emu.at_barrier.assign(block, 0);
+    emu.open.assign(block, {});
+    emu.committed.assign(block, {});
     for (int t = 0; t < block; ++t) {
       getcontext(&emu.fibers[t]);
       emu.fibers[t].uc_stack.ss_sp = emu.stacks[t];
@@ -297,16 +379,18 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
       makecontext(&emu.fibers[t], emu_fiber_main, 0);
     }
     for (;;) {
-      int waiting = 0, ended = 0;
+      int waiting = 0, ended = 0, barred = 0;
       for (int t = 0; t < block; ++t) {
         if (emu.ended[t]) continue;
         emu.current = t;
         threadIdx.x = t;
         swapcontext(&emu.scheduler, &emu.fibers[t]);
-        if (emu.ended[t])
+        if (emu.ended[t]) {
           ++ended;
-        else
+        } else {
           ++waiting;
+          barred += emu.at_barrier[t];
+        }
       }
       if (waiting && ended) {
         fprintf(stderr, "emulation: %d threads wait at a barrier that %d "
@@ -315,6 +399,7 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
         break;
       }
       if (!waiting) break;
+      if (barred == waiting) emu.at_barrier.assign(block, 0);
     }
   }
   free(emu.smem);

@@ -4,7 +4,8 @@ The sources are taken as they are, apart from three textual changes: the
 `<<<...>>>` launches become calls of `emu_launch`, the dynamic
 shared-memory declarations become pointers to the emulated block's
 shared memory, and `csrc/mma.cuh` (the PTX of `ldmatrix` and `mma.sync`)
-is replaced by the emulation's stand-ins for its two functions.
+and `csrc/cpasync.cuh` (the PTX of `cp.async`) are replaced by the
+emulation's stand-ins for their functions.
 """
 from __future__ import annotations
 
@@ -27,6 +28,20 @@ using ::ldmatrix_x4;
 using ::mma_bf16_16816;
 }  // namespace vss
 """
+
+
+_CPASYNC_STUB = """#pragma once
+// the emulation's cp.async stand-ins (tests/cuda_emulation.h)
+#include "cuda_emulation.h"
+namespace vss {
+using ::cp_async16;
+using ::cp_async_commit;
+using ::cp_async_wait;
+}  // namespace vss
+"""
+
+# headers of csrc/ replaced by the emulation's stand-ins for their PTX
+_STUBS = {"mma.cuh": _MMA_STUB, "cpasync.cuh": _CPASYNC_STUB}
 
 
 def for_gpp(text: str) -> str:
@@ -61,7 +76,7 @@ def setup(work) -> None:
     shutil.copy(os.path.join(TESTS, "cuda_emulation.h"), work / "cuda_emulation.h")
     for name in csrc._HEADERS:
         with open(os.path.join(CSRC, name)) as f:
-            (work / name).write_text(_MMA_STUB if name == "mma.cuh" else for_gpp(f.read()))
+            (work / name).write_text(_STUBS.get(name) or for_gpp(f.read()))
 
 
 def build(work, libraries, edits=()) -> dict[str, ctypes.CDLL]:

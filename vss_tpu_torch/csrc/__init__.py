@@ -39,10 +39,11 @@ SOURCES = {
     "descent": "descent.cu",
     "select": "select.cu",
     "selectk": "selectk.cu",
+    "pairtopk": "pairtopk.cu",
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }
-_HEADERS = ("common.cuh", "gather.cuh", "mma.cuh")
+_HEADERS = ("common.cuh", "gather.cuh", "mma.cuh", "selectk.cuh", "cpasync.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

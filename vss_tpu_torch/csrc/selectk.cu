@@ -61,22 +61,13 @@
 // Measured on the H100 (`chip_smoke.py`, PERF.md): the wide rows run at
 // about a third of the memory rate; more blocks a row do not help and
 // fewer instructions a value helped little, so the wait around each
-// tile's barrier is the likely limit (not profiled). Fusing the selection
-// into K4 is the oracle's next step.
-#include "common.cuh"
+// tile's barrier is the likely limit (not profiled). The exact oracle's
+// chunked path no longer comes here on the card: pairtopk.cu runs the same
+// selection inside K4's tile loop, with this file's key, composite and
+// cut, which selectk.cuh holds for both.
+#include "selectk.cuh"
 
 namespace vss {
-
-typedef unsigned long long u64;
-
-constexpr int kSkThreads = 256;  // a block's threads
-constexpr int kSkWarps = kSkThreads / 32;
-constexpr int kSkPer = 4;  // values a thread reads per tile
-constexpr int kSkTile = kSkThreads * kSkPer;
-constexpr int kSkBuf = 2048;  // candidates a block holds
-constexpr int kSkMaxK = 256;  // the widest k; kSkBuf >= kSkMaxK + kSkTile
-constexpr u64 kNone = ~0ull;  // an empty slot: after every composite
-constexpr unsigned kKeyInf = 0xff800000u;  // the key of +inf
 
 struct SelectKArgs {
   const float* d;        // [R, C]
@@ -90,27 +81,6 @@ struct SelectKArgs {
   bool iter_order;  // k <= 32's order: NaN first, +inf slots at position 0
   bool nan_inf;     // NaN reads as +inf
 };
-
-struct SelectKSmem {
-  u64 buf[kSkBuf];
-  int counts[2][kSkWarps];  // a tile's takes per warp, by tile parity
-  int last;                 // this block finished its row last
-};
-
-// The order of f32 values as an unsigned key: -0 as +0, NaN least
-// (`nan_first`) or greatest.
-__device__ __forceinline__ unsigned order_key(float v, bool nan_first) {
-  if (isnan(v)) return nan_first ? 0u : 0xffffffffu;
-  unsigned u = __float_as_uint(v);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// The least float whose key is `key` (NaN where no float compares: the
-// NaN keys, and a threshold not yet set).
-__device__ __forceinline__ float key_float(unsigned key) {
-  return __uint_as_float((key & 0x80000000u) ? key & 0x7fffffffu : ~key);
-}
 
 // The values of the row. `load` reads this thread's values of the tile at
 // b0 (and their mask bytes): value v at `pos(b0, v)`, 4 consecutive
@@ -180,109 +150,6 @@ struct PartSource {
   __device__ __forceinline__ bool maybe(u64, float) const { return true; }
   __device__ __forceinline__ u64 key(u64 r, int64_t) const { return r; }
 };
-
-// Sort buf[0, n2) ascending (n2 a power of two) by a bitonic network. A
-// stage of stride 32 or less pairs only entries that one warp holds
-// (thread t takes pairs t, t + 256, ...: warp w the entries 64 w .. 64 w +
-// 63 of each 512), so between two such stages a warp's barrier is enough;
-// a stage of a wider stride, and the stage before one, end in the
-// block's, and so does the sort.
-__device__ __forceinline__ void bitonic_sort(u64* buf, int n2) {
-  const int tid = threadIdx.x;
-  for (int size = 2; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < n2 / 2; i += kSkThreads) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const u64 a = buf[lo], b = buf[hi];
-        if ((a > b) == up) {
-          buf[lo] = b;
-          buf[hi] = a;
-        }
-      }
-      // the next stage's stride: stride / 2, or the next size's first, size
-      const int next = stride > 1 ? stride >> 1 : size;
-      if (stride > 32 || next > 32)
-        __syncthreads();
-      else
-        __syncwarp();
-    }
-  }
-  __syncthreads();
-}
-
-// Sort the n entries of the buffer and keep its k least: n becomes
-// min(n, k), and T the k-th least once there are k. n and T are alike in
-// every thread.
-__device__ __forceinline__ void reduce_buffer(SelectKSmem& s, int& n, u64& T,
-                                              int k) {
-  __syncthreads();  // the last tile's entries are in
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  for (int i = n + static_cast<int>(threadIdx.x); i < n2; i += kSkThreads)
-    s.buf[i] = kNone;
-  __syncthreads();
-  bitonic_sort(s.buf, n2);
-  if (n > k) n = k;
-  if (n == k) T = s.buf[k - 1];
-}
-
-// Filter the composites of positions [c0, c1) into the buffer (which holds
-// n entries below T), and end with the buffer sorted and cut to its k
-// least. The first tile takes only `first` values, so that the first cut,
-// which sorts every value read so far, sorts few; each tile's loads are
-// issued before the tile before it is filtered.
-template <typename Src>
-__device__ __forceinline__ void filter(SelectKSmem& s, const Src& src,
-                                       int64_t c0, int64_t c1, int first,
-                                       int k, int& n, u64& T) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  int parity = 0;
-  int64_t t0 = c0, t1 = c0 + first < c1 ? c0 + first : c1;
-  typename Src::Raw raw[kSkPer];
-  src.load(t0, t1, raw);
-  while (t0 < c1) {
-    const float tf = key_float(static_cast<unsigned>(T >> 32));
-    u64 c[kSkPer];
-#pragma unroll
-    for (int v = 0; v < kSkPer; ++v) {
-      const int64_t p = src.pos(t0, v);
-      c[v] = p < t1 && src.maybe(raw[v], tf) ? src.key(raw[v], p) : kNone;
-    }
-    const int64_t u0 = t1, u1 = t1 + kSkTile < c1 ? t1 + kSkTile : c1;
-    src.load(u0, u1, raw);
-    if (n > kSkBuf - kSkTile || (T == kNone && n >= k)) reduce_buffer(s, n, T, k);
-    unsigned take[kSkPer];
-    int mine = 0;
-#pragma unroll
-    for (int v = 0; v < kSkPer; ++v) {
-      take[v] = __ballot_sync(0xffffffffu, c[v] < T);
-      mine += __popc(take[v]);
-    }
-    if (lane == 0) s.counts[parity][warp] = mine;
-    __syncthreads();
-    int base = n, total = 0;
-#pragma unroll
-    for (int w = 0; w < kSkWarps; ++w) {
-      const int cw = s.counts[parity][w];
-      base += w < warp ? cw : 0;
-      total += cw;
-    }
-#pragma unroll
-    for (int v = 0; v < kSkPer; ++v) {
-      if ((take[v] >> lane) & 1u) s.buf[base + __popc(take[v] & below)] = c[v];
-      base += __popc(take[v]);
-    }
-    n += total;
-    parity ^= 1;
-    t0 = u0;
-    t1 = u1;
-  }
-  reduce_buffer(s, n, T, k);
-}
 
 // Row r's outputs from the sorted buffer (which holds k entries).
 __device__ __forceinline__ void write_row(const SelectKArgs& a,

@@ -17,13 +17,19 @@ Two paths, as in the JAX package:
     among those k, then k segments have a smaller minimum than x and
     each contributes an element < x, a contradiction). The candidate
     segments are then rescored exactly and reduced.
-  * otherwise: chunked distances through K4 (`dispatch_pairwise`) with a
-    running top-k.
+  * otherwise the chunked path: the stable k least of the whole tape. On
+    CUDA with k <= SELECT_K_MAX one call of `pairwise_topk` (the kernel
+    of `csrc/pairtopk.cu`: K4's tile loop with the selection inside,
+    replacing the TPU's `_pairwise_kernel` and the XLA merge after it), or
+    one call a chunk where the caller passes `chunk`, merged with the
+    running best; else (CPU tensors, or k above SELECT_K_MAX) blocks of
+    `chunk` rows through K4 (`dispatch_pairwise`), each through
+    `select_k`, merged the same way.
 
-Every row-wise k smallest of both paths, and of `scan_topk` and the pivot
-seeding, goes through `select_k`: on CUDA one launch of the `select_k`
-kernel (`csrc/selectk.cu`, replacing the XLA selection after the TPU
-kernels, `_iter_min_k` and `lax.top_k`), bit for bit the order of
+Every other row-wise k smallest of both paths, and of `scan_topk` and the
+pivot seeding, goes through `select_k`: on CUDA one launch of the
+`select_k` kernel (`csrc/selectk.cu`, replacing the XLA selection after
+the TPU kernels, `_iter_min_k` and `lax.top_k`), bit for bit the order of
 `_select_min_k_plain`, its plain version.
 """
 from __future__ import annotations
@@ -38,10 +44,11 @@ from vss_tpu_torch.ops.distance import (
     Metric,
     _epilogue,
     dispatch_pairwise,
+    pairwise,
 )
-from vss_tpu_torch.utils import cdiv, pad_to, resolve_device, round_up
+from vss_tpu_torch.utils import cdiv, pad_dim, pad_to, resolve_device, round_up
 
-__all__ = ["bruteforce_topk", "merge_topk", "select_k", "SELECT_K_MAX"]
+__all__ = ["bruteforce_topk", "merge_topk", "pairwise_topk", "select_k", "SELECT_K_MAX"]
 
 _INF = float("inf")
 
@@ -272,8 +279,13 @@ def _choose_chunk(nx: int, nq: int) -> int:
     return min(round_up(nx, 512), max(512, _BLOCK_ELEMS // max(nq, 1) // 512 * 512))
 
 
-def _bruteforce_chunked(q, x, valid, k, metric: Metric, chunk: int):
-    """Running top-k over [nq, chunk] distance blocks from K4."""
+def _chunked_topk(q, x, valid, k, chunk: int, chunk_topk):
+    """Running top-k over chunks of `chunk` rows: `chunk_topk(q, rows, kk,
+    valid_rows)` gives a chunk's stable kk least (tombstones and NaN read
+    as +inf) as (distances, positions in the chunk; any position where
+    the distance is not finite), and the stable k least of the running
+    best (earlier, lower-id rows first) and the chunk's are those of all
+    rows so far."""
     nq = q.shape[0]
     nx = x.shape[0]
     dev = q.device
@@ -281,17 +293,114 @@ def _bruteforce_chunked(q, x, valid, k, metric: Metric, chunk: int):
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
     for start in range(0, nx, chunk):
         stop = min(start + chunk, nx)
-        d = dispatch_pairwise(q, x[start:stop], metric)  # [nq, <=chunk]
-        # the chunk's stable k least, tombstones and NaN (NULL queries: no
-        # matches) read as +inf; the stable k least of the concatenation
-        # below are those of all rows so far
-        cd, local = select_k(d, min(k, stop - start), valid[start:stop], nan_as_inf=True)
-        # stable merge: earlier (lower-id) candidates first
+        cd, local = chunk_topk(q, x[start:stop], min(k, stop - start),
+                               None if valid is None else valid[start:stop])
         cat_d = torch.cat([best_d, cd], 1)
         cat_i = torch.cat([best_i, local + start], 1)
         best_d, pos = _sort_min_k(cat_d, k)
         best_i = cat_i.gather(1, pos.long())
     return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
+
+
+def _bruteforce_chunked(q, x, valid, k, metric: Metric, chunk: Optional[int]):
+    """The oracle's chunked path. CUDA tensors with k <= SELECT_K_MAX: one
+    `pairwise_topk` launch over the whole tape, or one a `chunk` of rows
+    where the caller passes `chunk`. Otherwise K4 blocks of `chunk` rows
+    (default `_choose_chunk`'s), each through `select_k` with the
+    tombstones and NaN (NULL queries: no matches) read as +inf."""
+    if q.device.type != "cpu" and k <= SELECT_K_MAX:
+        if chunk is None:
+            return pairwise_topk(q, x, k, metric, valid)
+        return _chunked_topk(q, x, valid, k, chunk,
+                             lambda qq, xs, kk, vs: pairwise_topk(qq, xs, kk, metric, vs))
+    return _chunked_topk(
+        q, x, valid, k, chunk or _choose_chunk(x.shape[0], q.shape[0]),
+        lambda qq, xs, kk, vs: select_k(dispatch_pairwise(qq, xs, metric), kk, vs,
+                                        nan_as_inf=True))
+
+
+_PAIRWISE_TOPK = csrc.register(csrc.Kernel(
+    "pairwise_topk", "pairtopk", "vss_pairwise_topk",
+    [csrc.PTR] * 6 + [csrc.I32, csrc.I64] + [csrc.I32] * 4,
+))
+
+# tape rows a tile and queries a block of pairwise_topk (csrc/pairtopk.cu
+# kPtRows, kPtQueries)
+_PT_ROWS = 128
+_PT_QUERIES = 128
+
+
+def _pairwise_topk_slabs(nq: int, nx: int) -> int:
+    """Slabs of the tape for pairwise_topk: enough that its blocks (one per
+    128 queries and slab) number about two for each of the card's 132 SMs,
+    each slab at least one 128-row tile."""
+    return max(1, min(cdiv(nx, _PT_ROWS), cdiv(2 * 132, cdiv(max(nq, 1), _PT_QUERIES))))
+
+
+def _pairwise_topk_plain(q, x, k: int, metric, valid=None, chunk: Optional[int] = None):
+    """Plain version of the pairwise_topk kernel: the chunked loop through
+    `pairwise` and `_select_k_plain` (chunks of `chunk` rows, default
+    `_choose_chunk`'s)."""
+    metric = Metric.parse(metric)
+    return _chunked_topk(
+        q, x, valid, k, chunk or _choose_chunk(x.shape[0], q.shape[0]),
+        lambda qq, xs, kk, vs: _select_k_plain(pairwise(qq, xs, metric), kk, vs,
+                                               nan_as_inf=True))
+
+
+def pairwise_topk(q: torch.Tensor, x: torch.Tensor, k: int, metric,
+                  valid: Optional[torch.Tensor] = None):
+    """The stable k smallest distances from each query of q [nq, d] to the
+    rows of x [nx, d] that `valid` [nx] (bool) keeps: (distances [nq, k]
+    f32 ascending, ids [nq, k] int32). Ties go to the lower row; tombstoned
+    rows and NaN distances are left out; slots past the candidates are
+    (+inf, -1), and an id is -1 wherever its distance is not finite. CUDA
+    tensors (k <= SELECT_K_MAX): one call of the `pairwise_topk` kernel,
+    no host sync and no [nq, nx] block, bit for bit K4 then `select_k`
+    then the stable merge. CPU tensors: `_pairwise_topk_plain`."""
+    metric = Metric.parse(metric)
+    if q.device.type == "cpu":
+        return _pairwise_topk_plain(q, x, k, metric, valid)
+    return _pairwise_topk_launch(q, x, k, metric, valid)
+
+
+def _pairwise_topk_launch(q, x, k: int, metric: Metric, valid=None, slabs=None):
+    """One call of the pairwise_topk kernel (two launches and a memset),
+    the tape cut into `slabs` slabs (default `_pairwise_topk_slabs`'s;
+    tests force others)."""
+    if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1] \
+            or not 0 <= k <= SELECT_K_MAX or x.shape[0] >= 2 ** 31 \
+            or (valid is not None and valid.shape != (x.shape[0],)):
+        raise ValueError(f"pairwise_topk: q {tuple(q.shape)}, x {tuple(x.shape)}, k={k} (k <= "
+                         f"{SELECT_K_MAX}) and valid "
+                         f"{None if valid is None else tuple(valid.shape)} disagree")
+    nq, d = q.shape
+    nx = x.shape[0]
+    dev = q.device
+    dists = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0 or k == 0:
+        return dists, ids
+    if nx == 0:
+        return dists.fill_(_INF), ids.fill_(-1)
+    # zero columns up to the kernel's 16-column step change no sum
+    cols = max(16, round_up(d, 16))
+    q = csrc.operand(pad_dim(q.float(), 1, cols))
+    x = csrc.operand(pad_dim(x.float(), 1, cols))
+    slabs = _pairwise_topk_slabs(nq, nx) if slabs is None else slabs
+    nbytes = _PAIRWISE_TOPK.function("vss_pairwise_topk_workspace_bytes", csrc.I64,
+                                     [csrc.I32] * 3)(nq, slabs, k)
+    ws = torch.empty((max(nbytes, 0),), dtype=torch.uint8, device=dev)
+    operands = [q, x, dists, ids, ws]
+    vptr = None
+    if valid is not None:
+        valid = csrc.operand(valid.to(torch.bool))
+        operands.append(valid)
+        vptr = valid.data_ptr()
+    _PAIRWISE_TOPK.launch(operands, q.data_ptr(), x.data_ptr(), vptr, dists.data_ptr(),
+                          ids.data_ptr(), ws.data_ptr(), nq, nx, cols, METRIC_IDS[metric], k,
+                          slabs)
+    return dists, ids
 
 
 def bruteforce_topk(
@@ -338,7 +447,6 @@ def bruteforce_topk(
         segs = torch.where(torch.isfinite(sd), si, -1)
         # keep >= min(k, 5) segments hold >= k rows, so k always fits
         return _rescore_segments(q, segs, x, valid_mask, k, metric, highest)
-    chunk = chunk or _choose_chunk(nx, nq)
     return _bruteforce_chunked(q, x, valid_mask, k, metric, chunk)
 
 
