@@ -68,15 +68,26 @@ def gpp(src, out) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def setup(work) -> None:
+def setup(work, edits=()) -> None:
     """Fill the directory `work` with the emulation header, stand-ins for
-    the CUDA headers, and the port's headers as g++ takes them."""
+    the CUDA headers, and the port's headers as g++ takes them. `edits`,
+    pairs (old, new), are applied to the port's headers, each of them
+    required to match one (a mutant of a shared header)."""
     for header in ("cuda_bf16.h", "cuda_runtime.h", "math_constants.h"):
         (work / header).write_text('#include "cuda_emulation.h"\n')
     shutil.copy(os.path.join(TESTS, "cuda_emulation.h"), work / "cuda_emulation.h")
+    texts = {}
     for name in csrc._HEADERS:
         with open(os.path.join(CSRC, name)) as f:
-            (work / name).write_text(_STUBS.get(name) or for_gpp(f.read()))
+            texts[name] = _STUBS.get(name) or for_gpp(f.read())
+    for old, new in edits:
+        hits = [name for name, text in texts.items() if old in text]
+        if not hits:
+            raise ValueError(f"no header of csrc/ has {old!r}")
+        for name in hits:
+            texts[name] = texts[name].replace(old, new)
+    for name, text in texts.items():
+        (work / name).write_text(text)
 
 
 def build(work, libraries, edits=()) -> dict[str, ctypes.CDLL]:

@@ -40,6 +40,7 @@ SOURCES = {
     "select": "select.cu",
     "selectk": "selectk.cu",
     "pairtopk": "pairtopk.cu",
+    "seeds": "seeds.cu",
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }

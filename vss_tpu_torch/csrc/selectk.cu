@@ -133,24 +133,6 @@ struct RowSource {
   }
 };
 
-// The row's partial lists, written by the other blocks of the row.
-struct PartSource {
-  typedef u64 Raw;
-  const u64* part;
-  __device__ __forceinline__ int64_t pos(int64_t b0, int v) const {
-    return b0 + v * kSkThreads + threadIdx.x;
-  }
-  __device__ __forceinline__ void load(int64_t b0, int64_t b1, u64 (&raw)[kSkPer]) const {
-#pragma unroll
-    for (int v = 0; v < kSkPer; ++v) {
-      const int64_t p = pos(b0, v);
-      if (p < b1) raw[v] = __ldcg(part + p);
-    }
-  }
-  __device__ __forceinline__ bool maybe(u64, float) const { return true; }
-  __device__ __forceinline__ u64 key(u64 r, int64_t) const { return r; }
-};
-
 // Row r's outputs from the sorted buffer (which holds k entries).
 __device__ __forceinline__ void write_row(const SelectKArgs& a,
                                           const SelectKSmem& s, int64_t r) {
@@ -187,23 +169,9 @@ __global__ void __launch_bounds__(kSkThreads)
   // k-th of them lets few of the next tiles' values in
   const int first = a.k > 128 ? 2 * kSkThreads : kSkThreads;
   filter(s, row, c0, c1, first, a.k, n, T);
-  if (a.splits == 1) {
-    write_row(a, s, r);
+  if (a.splits > 1 &&
+      !merge_splits(s, a.part + r * a.splits * a.k, a.done + r, split, a.splits, a.k, n, T))
     return;
-  }
-  u64* mine = a.part + (r * a.splits + split) * a.k;
-  for (int i = threadIdx.x; i < a.k; i += kSkThreads)
-    mine[i] = i < n ? s.buf[i] : kNone;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s.last = atomicAdd(a.done + r, 1) == a.splits - 1;
-  __syncthreads();
-  if (!s.last) return;
-  __threadfence();
-  n = 0;
-  T = kNone;
-  const PartSource parts{a.part + r * a.splits * a.k};
-  filter(s, parts, 0, static_cast<int64_t>(a.splits) * a.k, kSkTile, a.k, n, T);
   write_row(a, s, r);
 }
 

@@ -3,8 +3,10 @@
 // kernel): the order-preserving 32-bit key of an f32 value, the 64-bit
 // composite key << 32 | position (or row), which is unique, so that the k
 // least composites are one set however the values are split among blocks,
-// and the block-wide buffer that a filter fills and a bitonic network cuts
-// to its k least. See selectk.cu for the order and the design.
+// the block-wide buffer that a filter fills and a bitonic network cuts to
+// its k least, and the merge of a row split over several blocks. Included
+// also by `seeds.cu` (the pivot_seeds kernel). See selectk.cu for the
+// order and the design.
 #pragma once
 
 #include "common.cuh"
@@ -144,6 +146,49 @@ __device__ __forceinline__ void filter(SelectKSmem& s, const Src& src,
     t1 = u1;
   }
   reduce_buffer(s, n, T, k);
+}
+
+// A row's partial lists in the workspace, written by its blocks.
+struct PartSource {
+  typedef u64 Raw;
+  const u64* part;
+  __device__ __forceinline__ int64_t pos(int64_t b0, int v) const {
+    return b0 + v * kSkThreads + threadIdx.x;
+  }
+  __device__ __forceinline__ void load(int64_t b0, int64_t b1, u64 (&raw)[kSkPer]) const {
+#pragma unroll
+    for (int v = 0; v < kSkPer; ++v) {
+      const int64_t p = pos(b0, v);
+      if (p < b1) raw[v] = __ldcg(part + p);
+    }
+  }
+  __device__ __forceinline__ bool maybe(u64, float) const { return true; }
+  __device__ __forceinline__ u64 key(u64 r, int64_t) const { return r; }
+};
+
+// A row split over `splits` blocks: this block (segment `split`) writes
+// its k least, the buffer's n entries then kNone, to its slot of the
+// row's workspace `part` [splits, k], and counts itself done in `done`
+// (zero at launch). The block that finishes the row last merges the
+// splits * k entries by the same filter and returns true with the row's
+// k least sorted in the buffer; every other block returns false. No
+// second launch and no host sync.
+__device__ __forceinline__ bool merge_splits(SelectKSmem& s, u64* part, int* done,
+                                             int split, int splits, int k, int& n,
+                                             u64& T) {
+  u64* mine = part + static_cast<int64_t>(split) * k;
+  for (int i = threadIdx.x; i < k; i += kSkThreads) mine[i] = i < n ? s.buf[i] : kNone;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s.last = atomicAdd(done, 1) == splits - 1;
+  __syncthreads();
+  if (!s.last) return false;
+  __threadfence();
+  n = 0;
+  T = kNone;
+  const PartSource parts{part};
+  filter(s, parts, 0, static_cast<int64_t>(splits) * k, kSkTile, k, n, T);
+  return true;
 }
 
 }  // namespace vss

@@ -46,11 +46,11 @@ from vss_tpu_torch.index.search import (
     _dedupe_keep_first,
     beam_search_base,
     greedy_descent,
-    pivot_seeds,
+    scored_pivot_seeds,
 )
 from vss_tpu_torch.index.select import select_neighbors
 from vss_tpu_torch.ops.distance import gathered_distances, pairwise
-from vss_tpu_torch.ops.gather import gather_distances, gather_rows
+from vss_tpu_torch.ops.gather import gather_rows
 from vss_tpu_torch.ops.topk import _sort_min_k
 from vss_tpu_torch.utils import cdiv, resolve_device, round_up
 
@@ -147,12 +147,13 @@ def _insert_wave_core(
     rowids and valid flags are read on the host: pass numpy arrays to
     spare the device round trip.
 
-    `pivots` (pivot_slots, pivot_vecs) of the graph, when given, seed the
-    nodes that stop at level 0 or 1 from their nearest pivot (a level >= 1
-    node) where it is nearer than the greedy descent's end: the descent
-    runs from one entry through upper levels that, on the bulk builder's
-    graphs, join no clusters. The JAX package has no such seeding; the
-    default (None) is its algorithm."""
+    `pivots` (pivot_slots, pivot_vecs[, pivot_norms]) of the graph (as
+    `dense.pivot_rows` gives them, or without the norms), when given,
+    seed the nodes that stop at level 0 or 1 from their nearest pivot (a
+    level >= 1 node) where it is nearer than the greedy descent's end:
+    the descent runs from one entry through upper levels that, on the
+    bulk builder's graphs, join no clusters. The JAX package has no such
+    seeding; the default (None) is its algorithm."""
     dev = g.device
     slots_h = _host(slots).astype(np.int64)
     levels_h = _host(wave_levels).astype(np.int32)
@@ -192,11 +193,12 @@ def _insert_wave_core(
     seeds = torch.where(has_entry, seeds, -1)
     seed_d = torch.where(has_entry, seed_d, _INF)
     if pivots is not None and pivots[0] is not None:
-        p_seed, _ = pivot_seeds(g, config, wave_vecs, pivots[0], pivots[1], 1, q_norms)
-        # scored the way the beam scores every node (kernel K1)
-        p_d = gather_distances(g.vectors, p_seed, wave_vecs, config.metric, q_norms)[:, 0]
-        nearer = (wave_levels <= 1) & (p_seed[:, 0] >= 0) & (p_d < seed_d) & has_entry
-        seeds = torch.where(nearer, p_seed[:, 0], seeds)
+        # the nearest pivot, scored the way the beam scores every node
+        p_seed, p_d = scored_pivot_seeds(g, config, wave_vecs, pivots[0], pivots[1], 1, q_norms,
+                                         *pivots[2:])
+        p_seed, p_d = p_seed[:, 0], p_d[:, 0]
+        nearer = (wave_levels <= 1) & (p_seed >= 0) & (p_d < seed_d) & has_entry
+        seeds = torch.where(nearer, p_seed, seeds)
         seed_d = torch.where(nearer, p_d, seed_d)
 
     # ---- intra-wave candidates: one W x W distance tile

@@ -48,7 +48,7 @@ from vss_tpu_torch.ops.scan import scan_topk
 from vss_tpu_torch.ops.topk import bruteforce_topk
 from vss_tpu_torch.utils import next_pow2, resolve_device
 
-__all__ = ["HNSWIndex", "graph_pivots", "rescale_distances"]
+__all__ = ["HNSWIndex", "graph_pivots", "pivot_rows", "rescale_distances"]
 
 _RESERVE = 8  # tail slots reserved (scatter sink + padding headroom)
 
@@ -247,11 +247,11 @@ class HNSWIndex:
             q = q / self.vector_scale
         # one graph snapshot for the whole call
         g = self.graph
-        pivot_slots, pivot_vecs = self.pivots()
+        pivot_slots, pivot_vecs, pivot_norms = self.pivots()
         d, slots = hnsw_search(
             g, self.config, q, k, ef=ef, filter_mask=filter_mask,
             expand=expand, assume_all_valid=self.deleted_count == 0,
-            pivot_slots=pivot_slots, pivot_vecs=pivot_vecs,
+            pivot_slots=pivot_slots, pivot_vecs=pivot_vecs, pivot_norms=pivot_norms,
             rerank_tape=self.rerank_tape,
         )
         if self.config.storage_dtype == "int8":
@@ -259,14 +259,14 @@ class HNSWIndex:
         return d, self._rowids(g, slots)
 
     def pivots(self, min_pivots: int = 8):
-        """(pivot_slots [P] i32, pivot_vecs [P, d]) for pivot seeding: the
-        level >= 1 nodes, a geometric ~count/M sample of the corpus.
-        Cached per graph version; (None, None) for graphs too small to
-        sample."""
+        """(pivot_slots [P] i32, pivot_vecs [P, d] f32, pivot_norms [P]) for
+        pivot seeding: the level >= 1 nodes, a geometric ~count/M sample of
+        the corpus, their rows and squared norms (`pivot_rows`). Cached per
+        graph version; (None, None, None) for graphs too small to sample."""
         g = self.graph
         if self._pivot_cache is None or self._pivot_cache[0] is not g:
-            self._pivot_cache = (g, *graph_pivots(g, min_pivots))
-        return self._pivot_cache[1], self._pivot_cache[2]
+            self._pivot_cache = (g, *pivot_rows(*graph_pivots(g, min_pivots)))
+        return self._pivot_cache[1:]
 
     def norms(self):
         """Squared-norm tape [cap] f32 of the stored values, cached per
@@ -695,6 +695,17 @@ def graph_pivots(g: HNSWGraph, min_pivots: int = 8):
     slots[: idx.size] = idx
     slots_t = torch.from_numpy(slots).to(g.device)
     return slots_t, gather_rows(g.vectors, slots_t)
+
+
+def pivot_rows(pivot_slots, pivot_vecs):
+    """The pivots as the search seeds from them: (pivot_slots, their rows in
+    f32, their squared norms), computed once per pivot sample with the ops
+    `pivot_seeds` runs on every batch, so the bits are the same; (None,
+    None, None) without pivots."""
+    if pivot_slots is None:
+        return None, None, None
+    pv = pivot_vecs.float()
+    return pivot_slots, pv, (pv * pv).sum(-1)
 
 
 def _compact_rows(rows: np.ndarray) -> np.ndarray:

@@ -38,8 +38,15 @@ hand-written kernel on CUDA and its plain version on the CPU, so that on
 the card they are the kernels' references. The beam loop checks its done
 latch on the host every `_SYNC_EVERY` iterations; iterations after every
 query is done change nothing, so the result equals a check every
-iteration. The descent loop checks at every step. The seed rescoring and
-the rerank gather go through K1 and K5 on their own.
+iteration. The descent loop checks at every step.
+
+The pivot seeding (`scored_pivot_seeds`) is, for CUDA tensors, the
+product of the queries and the pivots (`torch.matmul`) and one launch of
+the `pivot_seeds` kernel (`csrc/seeds.cu`): the metric epilogue, the
+padding mask, the stable k smallest, the slot map and each seed's
+distance (kernel K1's code) in one pass over the product, no host sync.
+Its plain version, and what runs for CPU tensors, is `pivot_seeds`
+followed by K1's plain version. The rerank gather goes through K5.
 """
 from __future__ import annotations
 
@@ -50,11 +57,11 @@ import torch
 from vss_tpu_torch import csrc
 from vss_tpu_torch.index.graph import HNSWConfig, HNSWGraph
 from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue, gathered_distances
-from vss_tpu_torch.ops.gather import gather_distances, gather_rows
-from vss_tpu_torch.ops.topk import _select_min_k
+from vss_tpu_torch.ops.gather import _gather_distances_plain, gather_distances, gather_rows
+from vss_tpu_torch.ops.topk import SELECT_K_MAX, _select_k_splits, _select_min_k
 
-__all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "beam_search_base",
-           "beam_smem_bytes"]
+__all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "scored_pivot_seeds",
+           "beam_search_base", "beam_smem_bytes"]
 
 _INF = float("inf")
 
@@ -73,6 +80,11 @@ _BEAM = csrc.register(csrc.Kernel(
 _DESCENT = csrc.register(csrc.Kernel(
     "greedy_descent", "descent", "vss_greedy_descent",
     [csrc.PTR] * 11 + [csrc.I32] * 7,
+))
+
+_SEEDS = csrc.register(csrc.Kernel(
+    "pivot_seeds", "seeds", "vss_pivot_seeds",
+    [csrc.PTR] * 9 + [csrc.I32, csrc.I64] + [csrc.I32] * 5,
 ))
 
 
@@ -549,6 +561,90 @@ def pivot_seeds(
     return seeds, sd
 
 
+def scored_pivot_seeds(
+    graph: HNSWGraph,
+    config: HNSWConfig,
+    q: torch.Tensor,
+    pivot_slots: torch.Tensor,  # [P] i32
+    pivot_vecs: torch.Tensor,  # [P, d]
+    n_seeds: int,
+    q_norms: Optional[torch.Tensor] = None,
+    pivot_norms: Optional[torch.Tensor] = None,  # [P]
+):
+    """The pivot seeding with each seed scored the way the beam scores
+    every node: (seeds [B, k] i32, seed_d [B, k] f32), k = min(n_seeds, P),
+    a seed -1 and its distance +inf where its pivot's distance is not
+    finite. `pivot_norms`, the squared norms of the pivots' f32 rows
+    (`(pv * pv).sum(-1)`, as `pivot_seeds` computes them), spares their
+    reduction on every batch.
+
+    CUDA tensors with k <= SELECT_K_MAX: the product, then one launch of
+    the `pivot_seeds` kernel, no host sync; bit for bit `pivot_seeds`
+    followed by K1 (`gather_distances`), which is the route above
+    SELECT_K_MAX. CPU tensors: `_scored_pivot_seeds_plain`."""
+    if q.device.type == "cpu":
+        return _scored_pivot_seeds_plain(graph, config, q, pivot_slots, pivot_vecs, n_seeds,
+                                         q_norms)
+    k = min(n_seeds, pivot_slots.shape[0])
+    if k > SELECT_K_MAX:
+        seeds, _ = pivot_seeds(graph, config, q, pivot_slots, pivot_vecs, n_seeds, q_norms)
+        return seeds, gather_distances(graph.vectors, seeds, q, config.metric, q_norms)
+    q = q.float()
+    pv = pivot_vecs.float()
+    qn = (q * q).sum(-1) if q_norms is None else q_norms
+    pn = (pv * pv).sum(-1) if pivot_norms is None else pivot_norms
+    return _pivot_seeds_launch(q @ pv.T, qn, pn, pivot_slots, graph.vectors, q, config.metric,
+                               k)
+
+
+def _scored_pivot_seeds_plain(graph, config, q, pivot_slots, pivot_vecs, n_seeds, q_norms):
+    """Plain version of the `pivot_seeds` kernel: `pivot_seeds`, then each
+    seed scored by K1's plain version."""
+    seeds, _ = pivot_seeds(graph, config, q, pivot_slots, pivot_vecs, n_seeds, q_norms)
+    q = q.float()
+    qn = (q * q).sum(-1) if q_norms is None else q_norms.float()
+    return seeds, _gather_distances_plain(graph.vectors, seeds, q,
+                                          Metric.parse(config.metric), qn)
+
+
+def _pivot_seeds_launch(dots, qn, pn, pivot_slots, table, q, metric, k: int,
+                        splits: Optional[int] = None):
+    """One launch of the `pivot_seeds` kernel over the product `dots`
+    [B, P] with `splits` blocks a row (default `_select_k_splits`'s
+    choice; tests force either layout). Returns (seeds [B, k] i32,
+    seed_d [B, k] f32)."""
+    metric = Metric.parse(metric)
+    B, P = dots.shape
+    d = table.shape[1]
+    if dots.dtype != torch.float32 or q.shape != (B, d) or qn.shape != (B,) \
+            or pn.shape != (P,) or pivot_slots.shape != (P,) \
+            or not 0 <= k <= min(P, SELECT_K_MAX) or P >= 2 ** 31:
+        raise ValueError(f"pivot_seeds: dots {tuple(dots.shape)} {dots.dtype}, q "
+                         f"{tuple(q.shape)}, q norms {tuple(qn.shape)}, pivot norms "
+                         f"{tuple(pn.shape)}, slots {tuple(pivot_slots.shape)}, tape "
+                         f"{tuple(table.shape)} and k={k} (k <= min(P, {SELECT_K_MAX})) "
+                         f"disagree")
+    dev = dots.device
+    seeds = torch.empty((B, k), dtype=torch.int32, device=dev)
+    seed_d = torch.empty((B, k), dtype=torch.float32, device=dev)
+    if B == 0 or k == 0:
+        return seeds, seed_d
+    splits = _select_k_splits(B, P) if splits is None else splits
+    dots, qn, pn, q = (csrc.operand(t.float()) for t in (dots, qn, pn, q))
+    slots = csrc.operand(pivot_slots.to(torch.int32))
+    table = csrc.operand(table)
+    operands = [dots, qn, pn, slots, table, q, seeds, seed_d]
+    wptr = None
+    if splits > 1:
+        ws = torch.empty((B * splits * k * 8 + B * 4,), dtype=torch.uint8, device=dev)
+        operands.append(ws)
+        wptr = ws.data_ptr()
+    _SEEDS.launch(operands, dots.data_ptr(), qn.data_ptr(), pn.data_ptr(), slots.data_ptr(),
+                  table.data_ptr(), q.data_ptr(), seeds.data_ptr(), seed_d.data_ptr(), wptr,
+                  B, P, d, csrc.dtype_code(table.dtype), METRIC_IDS[metric], k, splits)
+    return seeds, seed_d
+
+
 def hnsw_search(
     graph: HNSWGraph,
     config: HNSWConfig,
@@ -565,6 +661,7 @@ def hnsw_search(
     pivot_vecs: Optional[torch.Tensor] = None,
     n_seeds: int = 4,
     rerank_tape: Optional[torch.Tensor] = None,
+    pivot_norms: Optional[torch.Tensor] = None,
 ):
     """k-NN search over the graph for a batch of queries.
 
@@ -573,8 +670,10 @@ def hnsw_search(
     `filter_mask` is an optional bool [cap] row predicate; tombstoned
     slots are always excluded from results but still routable.
     `pivot_slots`/`pivot_vecs` switch seeding from greedy descent to the
-    pivot scan with `n_seeds` seeds per query. `rerank_tape` rescores the
-    ef-wide result pool exactly from a full-precision side tape.
+    pivot scan with `n_seeds` seeds per query (`scored_pivot_seeds`;
+    `pivot_norms`, the pivots' squared norms, spares their reduction a
+    batch). `rerank_tape` rescores the ef-wide result pool exactly from a
+    full-precision side tape.
     with_stats=True also returns {"iterations", "distance_evals"}.
     """
     dev = graph.device
@@ -591,9 +690,8 @@ def hnsw_search(
     metric = Metric.parse(config.metric)
     q_norms = (q * q).sum(-1) if metric in (Metric.L2SQ, Metric.COSINE) else None
     if pivot_slots is not None:
-        seeds, _ = pivot_seeds(graph, config, q, pivot_slots, pivot_vecs, n_seeds, q_norms)
-        # re-score the seeds the way the beam scores every node
-        seed_d = gather_distances(graph.vectors, seeds, q, metric, q_norms)
+        seeds, seed_d = scored_pivot_seeds(graph, config, q, pivot_slots, pivot_vecs, n_seeds,
+                                           q_norms, pivot_norms)
     else:
         seeds, seed_d = greedy_descent(graph, config, q, q_norms=q_norms)
     res_d, res_i, _, (iters, evals) = beam_search_base(

@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from vss_tpu_torch.index.build import _insert_wave_core, plan_wave_rows
-from vss_tpu_torch.index.dense import HNSWIndex, graph_pivots, rescale_distances
+from vss_tpu_torch.index.dense import HNSWIndex, graph_pivots, pivot_rows, rescale_distances
 from vss_tpu_torch.index.graph import (
     HNSWConfig,
     HNSWGraph,
@@ -353,12 +353,12 @@ class ShardedHNSWIndex:
         for s in self._local:
             g = graphs[s]
             with on_device(g.device):
-                pivot_slots, pivot_vecs = self._cached(self._pivot_cache, s, g, graph_pivots)
+                pivot_slots, pivot_vecs, pivot_norms = self._pivots(s, g)
                 res = hnsw_search(
                     g, self.config, q.to(g.device), k, ef=ef_shard, filter_mask=masks.get(s),
                     expand=expand, assume_all_valid=all_valid, pivot_slots=pivot_slots,
-                    pivot_vecs=pivot_vecs, rerank_tape=None if tapes is None else tapes[s],
-                    with_stats=with_stats)
+                    pivot_vecs=pivot_vecs, pivot_norms=pivot_norms,
+                    rerank_tape=None if tapes is None else tapes[s], with_stats=with_stats)
                 slots = res[1]
                 rows = torch.where(slots >= 0, g.slot_to_rowid[slots.clamp(min=0).long()], -1)
             outs[s] = (res[0], rows)
@@ -373,6 +373,11 @@ class ShardedHNSWIndex:
                 ev = self._gather_shards(ev, 1, 0)
             return d, rows, {"per_shard_evals": ev[0].numpy(), "ef_shard": ef_shard}
         return d, rows
+
+    def _pivots(self, s: int, g: HNSWGraph):
+        """Shard s's (pivot_slots, f32 rows, squared norms) (`pivot_rows`),
+        cached on its graph."""
+        return self._cached(self._pivot_cache, s, g, lambda graph: pivot_rows(*graph_pivots(graph)))
 
     @staticmethod
     def _cached(cache: list, s: int, g: HNSWGraph, compute):
@@ -500,7 +505,7 @@ class ShardedHNSWIndex:
             if g is None:
                 continue
             with on_device(g.device):
-                pivots = self._cached(self._pivot_cache, s, g, graph_pivots)
+                pivots = self._pivots(s, g)
                 graphs[s] = _insert_wave_core(
                     g.clone(), self.config, wv, sl, lv, ur, rid, va,
                     self.config.ef_construction, 4, min(self.config.m, W), pivots=pivots)
