@@ -7,6 +7,7 @@
     python3 chip_smoke.py --select-k-only  # the select_k kernel alone
     python3 chip_smoke.py --pairwise-topk-only  # the pairwise_topk kernel alone
     python3 chip_smoke.py --pivot-seeds-only  # the pivot_seeds kernel alone
+    python3 chip_smoke.py --rescore-only   # the rescore_topk kernel alone
 
 Phases, each of which fails the run (nonzero exit) on any fault:
 
@@ -62,9 +63,19 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     both layouts), at one query, at a shard's pivots, at the sharded
     insert's wave and at the emulated tests' edge shapes, and against its
     plain version within the tolerance below; one launch and no host
-    sync. K1, K5, the descent kernel, the select kernels and pivot_seeds
-    are timed by their device time from the profiler's trace, since their
-    wrappers take longer on the host than the kernels on the card;
+    sync; then the rescore_topk kernel (`check_rescore`: the exact scan's
+    phases B and C) against its plain version (`_rescore_chunks`) on the
+    sub-segments that K2 and `_select_subsegments` keep for the flagship's
+    queries at k = 1, 10, 32, 100 and 128, at one query (its segments over
+    several blocks), in the other layout, under every metric, on an f32
+    tape without a rerank tape, a bf16 tape and a ragged 70,037-row tape,
+    within the tolerance below with ids equal up to near-ties; bit for bit
+    on integer-valued queries and rerank rows; a control (phase C on
+    bf16-rounded rerank rows) that must break the tolerance; one launch
+    and no host sync. K1, K5, the descent kernel, the select kernels,
+    pivot_seeds and rescore_topk are timed by their device time from the
+    profiler's trace, since their wrappers take longer on the host than
+    the kernels on the card;
  4. build and serve the flagship: a SIFT-like synthetic corpus of
     1,000,000 x 128 (the generator of bench.py, seed 0) in an int8 index
     with the f32 rerank tape, built by `HNSWIndex.build` with `auto` (on
@@ -74,18 +85,22 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     of 512. The exact oracle (`bruteforce_topk`:
     K3 at k=10, pairwise_topk at k=100) gives the ground truth; at k=300
     over the first 65,536 rows it runs K4 and the plain selection, whose
-    first 256 must equal pairwise_topk's at k=256; `scan_search` (K2)
-    and the graph `search` at ef=64 (one pivot_seeds launch and one
-    beam_search launch per batch, K5 for the rerank gather) are scored by
-    recall, and so is a search at ef=320 seeded from 300 pivots, past
-    select_k's widest k, where the seeding is the route (`pivot_seeds`
-    with the stable sort, then K1). Launch counters are zeroed just before
-    each path and read just after it. The oracle at k=10 and the scans then
+    first 256 must equal pairwise_topk's at k=256; `scan_search` (K2,
+    then one rescore_topk launch per batch) and the graph `search` at
+    ef=64 (one pivot_seeds launch and one beam_search launch per batch, K5
+    for the rerank gather) are scored by recall, and so is a search at
+    ef=320 seeded from 300 pivots, past select_k's widest k, where the
+    seeding is the route (`pivot_seeds` with the stable sort, then K1).
+    Launch counters are zeroed just before each path and read just after
+    it. The oracle at k=10 and the scans then
     run again with every selection by its plain version (`plain_selection`:
     k argmin passes, a stable sort) and with select_k, in turns, with ids
     and distances that must agree bit for bit, and one batch of each under
-    the profiler; the graph search the same way with the parent's seeding
-    (`seeds_route`) before and pivot_seeds after; the k=100 oracle with
+    the profiler; the scans again with the plain phases B and C
+    (`plain_rescore`) before and rescore_topk after, ids equal up to
+    near-ties and recall equal; the graph search the same way with the
+    parent's seeding (`seeds_route`) before and pivot_seeds after; the
+    k=100 oracle with
     the K4 route before and pairwise_topk after, with the peak memory of
     a batch of each. Then the forward call of `vss_tpu_torch.entry.entry()`
     (64 queries, k=10, ef=64 over a host-built 1,024-row graph: one
@@ -138,6 +153,7 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     and with the full beam), `scan_search` and a filter mask that allows
     half the rows, scored against phase 4's oracle and the filtered
     oracle; `scan_search` with the plain selections and with select_k,
+    and with the plain phases B and C and with rescore_topk,
     `search` with the parent's seeding and with pivot_seeds, in turns; the
     per-shard counters; insert 32,768 rows, delete `id % 5 =
     0`, compact; a forced rebalance at 65,536 rows; save and load,
@@ -1786,10 +1802,9 @@ def select_gist_width(dev) -> dict:
 # the select_k kernel: the k smallest of each row, after K2, K3 and K4
 
 # the callers of select_k on the main path, by function, and what each call
-# is
+# is (scan_topk's phase-B selection runs inside rescore_topk)
 SELECT_K_SITES = {
     "_select_subsegments": "scan_topk's segment selections (ops/scan.py:121 supers, :128 subs)",
-    "_rescore_native_block": "scan_topk's rescore (ops/scan.py:159, m rows)",
     "bruteforce_topk": "the oracle's winnow (ops/topk.py, segments to rescore)",
     "_rescore_block": "the oracle's winnow rescore",
 }
@@ -1798,9 +1813,7 @@ SELECT_K_SITES = {
 # columns, k, masked and NaN as +inf)
 SELECT_K_SHAPES = [
     ("_select_subsegments", 512, 7813, 12, False), ("_select_subsegments", 512, 48, 12, False),
-    ("_rescore_native_block", 512, 384, 20, False),
     ("_select_subsegments", 512, 7813, 112, False), ("_select_subsegments", 512, 448, 112, False),
-    ("_rescore_native_block", 512, 3584, 200, False),
     ("bruteforce_topk", 512, 7813, 10, False), ("_rescore_block", 512, 1280, 10, False),
 ]
 
@@ -2034,42 +2047,57 @@ def plain_selection():
         topk.select_k = real
 
 
-def before_after(label: str, fn, queries, out_dir: str, before_fn=None) -> dict:
+def before_after(label: str, fn, queries, out_dir: str, before_fn=None, before_ctx=None,
+                 agree=None, truth=None) -> dict:
     """A serving path over the query batches "before" and "after", in turns
     (before, after, after, before): before is `fn` with the plain
-    selections (`plain_selection`), or `before_fn` where given (the
-    parent's route, composed in this script); after is `fn`. Its ms per
-    batch (the mean of its two runs), its ids equal and its distances bit
-    for bit, one batch of each under the profiler (kernels per batch, busy
-    ms, idle share) and the peak memory of one batch of each."""
+    selections (`plain_selection`), or inside `before_ctx()` where given (a
+    context that puts another plain version in place), or `before_fn`
+    where given (the parent's route, composed in this script); after is
+    `fn`. Its ms per batch (the mean of its two runs), its outputs checked
+    (ids equal and distances bit for bit, or by `agree(label, before,
+    after)` where given; with `truth`, recall of each within 0.0001), one
+    batch of each under the profiler (kernels per batch, busy ms, idle
+    share) and the peak memory of one batch of each."""
     ms = {"before": [], "after": []}
     outs = {}
 
-    def before_ctx():
+    def ctx():
+        if before_ctx is not None:
+            return before_ctx()
         return contextlib.nullcontext() if before_fn else plain_selection()
 
     for which in ("before", "after", "after", "before"):
-        with before_ctx() if which == "before" else contextlib.nullcontext():
+        with ctx() if which == "before" else contextlib.nullcontext():
             out, times = timed_batches(before_fn or fn if which == "before" else fn, queries)
         ms[which].append(sum(times) / len(times))
         outs.setdefault(which, out)
     (bd, bi), (ad, ai) = outs["before"], outs["after"]
-    if not np.array_equal(bi, ai) or not np.array_equal(bd.view(np.int32), ad.view(np.int32)):
+    checked = {}
+    if agree is not None:
+        checked = agree(label, outs["before"], outs["after"])
+    elif not np.array_equal(bi, ai) or not np.array_equal(bd.view(np.int32), ad.view(np.int32)):
         fail(f"{label}: ids or distances after differ from before "
              f"({int((bi != ai).any(1).sum())} rows of ids)")
+    if truth is not None:
+        checked["recall_before"], checked["recall_after"] = recall(bi, truth), recall(ai, truth)
+        if abs(checked["recall_before"] - checked["recall_after"]) > 1e-4:
+            fail(f"{label}: recall {checked['recall_before']} before, "
+                 f"{checked['recall_after']} after")
     mean = {w: sum(v) / len(v) for w, v in ms.items()}
     qb = queries[:BATCH]
-    with before_ctx():
+    with ctx():
         prof_b = profile_batch(f"{label}, before", before_fn or fn, qb, mean["before"], out_dir)
         peak_b = peak_mb(lambda: (before_fn or fn)(qb))
     prof_a = profile_batch(f"{label}, after", fn, qb, mean["after"], out_dir)
     peak_a = peak_mb(lambda: fn(qb))
     log(f"{label}: before {mean['before']:.3f} ms/batch {[round(t, 3) for t in ms['before']]}, "
         f"peak {peak_b:.1f} MB; after {mean['after']:.3f} {[round(t, 3) for t in ms['after']]}, "
-        f"peak {peak_a:.1f} MB; ids and distances equal")
+        f"peak {peak_a:.1f} MB; "
+        f"{json.dumps(checked) if checked or agree else 'ids and distances equal'}")
     return {"before_ms": mean["before"], "after_ms": mean["after"], "runs": ms,
             "before": prof_b, "after": prof_a, "before_peak_mb": peak_b,
-            "after_peak_mb": peak_a}
+            "after_peak_mb": peak_a, **checked}
 
 
 # ----------------------------------------------------------------------
@@ -2386,6 +2414,307 @@ def check_pivot_seeds(dev, idx, q_scaled, wave_scaled, out_dir) -> dict:
     top = shapes[0]
     return dict(ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], library_ms=None, max_abs_err=err, shapes=shapes)
+
+
+# ----------------------------------------------------------------------
+# phases B and C of the exact scan (rescore_topk)
+
+
+def scan_segs(q, tape, xn, valid, k: int, keep=None, metric="l2sq"):
+    """The sub-segments `scan_topk` keeps for queries `q` (scaled units):
+    K2, then `_select_subsegments`, at keep = 2k (`scan_search`'s) unless
+    given, capped as `scan_topk` caps it."""
+    from vss_tpu_torch.ops import scan as s
+
+    keep = min(2 * k if keep is None else keep, s._GROUP * -(-tape.shape[0] // s._SEG))
+    subs = s.native_segmin(q.to(torch.bfloat16), tape, xn, valid, metric)
+    return s._select_subsegments(subs, keep)
+
+
+def rescore_m(k: int, segs, rr) -> int:
+    """`scan_topk`'s phase-B pool."""
+    return min(max(2 * k, k + 6), segs.shape[1] * 32) if rr is not None else k
+
+
+def true_dists(q, rows, metric: str) -> np.ndarray:
+    """float64 distances of each query to its rows, on the host: q [B, d],
+    rows [B, C, d] (numpy)."""
+    q = q.astype(np.float64)[:, None, :]
+    rows = rows.astype(np.float64)
+    if metric == "l2sq":
+        return ((q - rows) ** 2).sum(-1)
+    dots = (q * rows).sum(-1)
+    if metric == "ip":
+        return 1.0 - dots
+    den = np.sqrt((q * q).sum(-1) * (rows * rows).sum(-1))
+    return 1.0 - np.where(den > 0, dots / np.where(den > 0, den, 1.0), 0.0)
+
+
+def rescore_verdict(got, want, q, segs, tape, xn, valid, rr, m: int, metric: str) -> dict:
+    """Kernel (`got`) against plain version (`want`) of rescore_topk on the
+    same inputs, within the tolerance of `check_rescore`: +inf in the same
+    places, distances within REL_TOL of the magnitude of their terms
+    (`dist_scale` of the queries and the rows scored last: the rerank
+    tape, else the tape), and ids equal except at a near-tie: both ids'
+    float64 distances within that tolerance, or one of them at phase B's
+    m-th place, its phase-B value and the next one's within REL_TOL of
+    the tape's `dist_scale`. Returns the counts and `ok`."""
+    from vss_tpu_torch.ops import scan as s
+
+    gd, gi = got
+    wd, wi = want
+    out = {"rows": int(gd.shape[0]), "bit_equal": bool(bit_equal(gd, wd) and torch.equal(gi, wi))}
+    if gd.shape != wd.shape or gi.shape != wi.shape:
+        return dict(out, ok=False, why=f"shapes {tuple(gd.shape)} != {tuple(wd.shape)}")
+    fin = torch.isfinite(wd)
+    if not torch.equal(torch.isfinite(gd), fin):
+        return dict(out, ok=False, why="finite in one version only")
+    src = rr if rr is not None else tape
+    tol = REL_TOL * dist_scale(q, src, metric)
+    btol = REL_TOL * dist_scale(q, tape, metric)
+    err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    out.update(max_abs_err=err, tol=tol)
+    if not err <= tol:
+        return dict(out, ok=False, why=f"max_abs_err {err:.6g} over tol {tol:.6g}")
+    differ = (gi != wi).any(1).nonzero()[:, 0].tolist()
+    near_final = near_b = bad = 0
+    for b in differ:
+        ids = sorted({int(i) for i in torch.cat([gi[b], wi[b]]).tolist() if i >= 0})
+        td = true_dists(q[b:b + 1].cpu().numpy(), src[torch.tensor(ids, device=src.device)]
+                        .float().cpu().numpy()[None], metric)[0]
+        t = dict(zip(ids, td))
+        brows, bvals = s._phase_b_plain(q[b:b + 1], segs[b:b + 1], tape, xn, valid,
+                                        rr is not None, s.Metric.parse(metric))
+        bv = bvals[0].cpu().numpy()
+        pv = {}
+        for r, v in zip(brows[0].tolist(), bv.tolist()):
+            pv[r] = min(v, pv.get(r, v))
+        srt = np.sort(bv)
+        vm = srt[m - 1] if m - 1 < srt.size else np.inf
+        vn = srt[m] if m < srt.size else np.inf
+        for j in (gi[b] != wi[b]).nonzero()[:, 0].tolist():
+            a, w = int(gi[b, j]), int(wi[b, j])
+            if a >= 0 and w >= 0 and abs(t[a] - t[w]) <= tol:
+                near_final += 1
+            elif abs(vm - vn) <= btol and any(x >= 0 and x in pv and min(
+                    abs(pv[x] - vm), abs(pv[x] - vn)) <= btol for x in (a, w)):
+                near_b += 1
+            else:
+                bad += 1
+    out.update(rows_differ=len(differ), near_ties_final=near_final, near_ties_phase_b=near_b,
+               not_near=bad)
+    return dict(out, ok=bad == 0, why=f"{bad} ids differ at no near-tie" if bad else "")
+
+
+def rescore_variant(label, q, segs, tape, xn, valid, rr, k: int, metric="l2sq", splits=None,
+                    exact=False) -> dict:
+    """The rescore_topk kernel against its plain version (`_rescore_chunks`,
+    the parent's phases B and C) on the card: `rescore_verdict`'s tolerance,
+    or with `exact` (integer-valued inputs: every sum exact) ids equal and
+    distances bit for bit (cosine: within the tolerance where PyTorch's
+    sqrt or division rounds otherwise)."""
+    from vss_tpu_torch.ops import scan as s
+    from vss_tpu_torch.ops.distance import Metric
+
+    m = rescore_m(k, segs, rr)
+    got = s._rescore_launch(q, segs, tape, xn, valid, rr, m, k, Metric.parse(metric), splits)
+    want = s._rescore_chunks(q, segs, tape, xn, valid, rr, m, k, Metric.parse(metric))
+    v = rescore_verdict(got, want, q, segs, tape, xn, valid, rr, m, metric)
+    if exact and not v["bit_equal"] and (metric != "cosine" or not v["ok"]):
+        fail(f"rescore_topk {label}: not bit for bit on exact sums ({v})")
+    if not v["ok"]:
+        fail(f"rescore_topk {label}: {v['why']} ({v})")
+    layout = splits or s._rescore_splits(q.shape[0], segs.shape[1])
+    log(f"  {label}: {q.shape[0]} queries, keep {segs.shape[1]}, m={m}, k={k}, {metric}, "
+        f"{str(tape.dtype)[6:]} tape, rerank "
+        f"{None if rr is None else str(rr.dtype)[6:]}, {layout} block(s) a query: "
+        f"{'bit for bit' if v['bit_equal'] else 'within tolerance'} (max_abs_err "
+        f"{v.get('max_abs_err', 0):.6g}, tol {v.get('tol', 0):.6g}, rows with other ids "
+        f"{v.get('rows_differ', 0)}: near-ties final {v.get('near_ties_final', 0)}, phase B "
+        f"{v.get('near_ties_phase_b', 0)})")
+    return v
+
+
+def rescore_timing(label, q, segs, tape, xn, valid, rr, k: int, out_dir: str) -> dict:
+    """Device time of the kernel (from the trace), the plain version's time
+    (CUDA events), and the bound: the bytes the call must move, each input
+    read once (the distinct kept sub-segments' rows, norms and flags; the
+    distinct rows of the phase-B pools, from the plain version's phase B;
+    the queries and segment ids; the outputs),
+    over the memory rate, against its f32 operations over the f32 rate."""
+    from vss_tpu_torch.ops import scan as s
+
+    m = rescore_m(k, segs, rr)
+    nq, keep = segs.shape
+    nx, d = tape.shape
+    ms = device_ms(lambda: s.rescore_topk(q, segs, tape, xn, valid, rr, m, k, "l2sq"), 20,
+                   "rescore_topk", out_dir)
+    plain_ms = cuda_ms(lambda: s._rescore_chunks(q, segs, tape, xn, valid, rr, m, k,
+                                                 s.Metric.L2SQ), 3)
+    useg = torch.unique(segs[segs >= 0])
+    rows = int(torch.clamp(nx - useg.long() * 32, 0, 32).sum())
+    bytes_moved = (nq * d * 4 + nq * 4 + nq * keep * 4 + rows * (d * tape.element_size() + 5)
+                   + nq * k * 8)
+    pool_rows = 0
+    if rr is not None:
+        brows, bvals = s._phase_b_plain(q, segs, tape, xn, valid, True, s.Metric.L2SQ)
+        bv, bp = s._select_min_k(bvals, m)
+        pool = torch.where(torch.isfinite(bv), brows.gather(1, bp.long()), -1)
+        pool_rows = int(torch.unique(pool[pool >= 0]).numel())
+        bytes_moved += pool_rows * d * rr.element_size()
+        del brows, bvals
+    per_query = nq * keep * 32 * (d * tape.element_size() + 5) + (nq * m * d * 4 if rr is not None
+                                                                  else 0)
+    cand = int((segs >= 0).sum()) * 32
+    ops = 2.0 * cand * d + 3.0 * nq * m * d
+    b_ms, b_by = bound(bytes_moved, ops, "f32")
+    log(f"  {label}: kernel {ms:.4f} ms device, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {bytes_moved / 1e6:.1f} MB, {useg.numel()} distinct sub-segments, "
+        f"{pool_rows} distinct pool rows; counted per query {per_query / 1e6:.1f} MB, "
+        f"{per_query / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return dict(label=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                mb=bytes_moved / 1e6, per_query_mb=per_query / 1e6)
+
+
+# check_rescore's ragged tape: rows (not a multiple of 32), queries
+RESCORE_RAGGED = (70_037, 200)
+
+
+def check_rescore(dev, tape, xn, valid, rr, q, rng, out_dir) -> dict:
+    """The rescore_topk kernel against its plain version (`_rescore_chunks`)
+    on the flagship's tapes (int8 `tape` with norms `xn`, flags `valid`,
+    the f32 rerank tape `rr`) and queries `q` (scaled units), at the real
+    segments that K2 and `_select_subsegments` keep (`scan_segs`): k = 10
+    and 100 (`scan_search`'s), 1, 32 and 128 (keep 256), one query (its
+    segments split), the other layout, every metric, an f32 tape without
+    a rerank tape, a bf16 tape, a ragged 70,037-row tape; exact on
+    integer-valued queries and rerank rows; a control (phase C on
+    bf16-rounded rerank rows) that must break the tolerance; one launch
+    and no host sync; the times at k = 10 and 100."""
+    from vss_tpu_torch.ops import scan as s
+
+    log("rescore_topk")
+    segs = {k: scan_segs(q, tape, xn, valid, k) for k in (1, 10, 32, 100, 128)}
+    verdicts = {}
+    for k in (10, 100, 1, 32, 128):
+        verdicts[k] = rescore_variant(f"flagship k={k}", q, segs[k], tape, xn, valid, rr, k)
+    rescore_variant("flagship k=100, 2 blocks a query", q, segs[100], tape, xn, valid, rr, 100,
+                    splits=2)
+    for k in (10, 100):
+        rescore_variant(f"one query, k={k}", q[:1], segs[k][:1], tape, xn, valid, rr, k)
+        rescore_variant(f"one query, k={k}, one block", q[:1], segs[k][:1], tape, xn, valid, rr,
+                        k, splits=1)
+    for metric in ("cosine", "ip"):
+        rescore_variant("flagship k=10", q, scan_segs(q, tape, xn, valid, 10, metric=metric),
+                        tape, xn, valid, rr, 10, metric)
+    # the stored tape in f32 (no rerank tape) and in bf16 (with one)
+    rr_n = (rr.float() ** 2).sum(-1)
+    rescore_variant("f32 tape, no rerank tape, k=10", q, scan_segs(q, rr, rr_n, valid, 10), rr,
+                    rr_n, valid, None, 10)
+    bt = rr.to(torch.bfloat16)
+    bt_n = (bt.float() ** 2).sum(-1)
+    rescore_variant("bf16 tape, k=10", q, scan_segs(q, bt, bt_n, valid, 10), bt, bt_n, valid, rr,
+                    10)
+    # ragged: 70,037 rows, a tenth invalid, a zero row
+    n, nq_r = RESCORE_RAGGED
+    t = torch.from_numpy(rng.integers(-127, 128, (n, D)).astype(np.int8)).to(dev)
+    t[11] = 0
+    tn = (t.float() ** 2).sum(-1)
+    v = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    tr = t.float() + torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32)).to(dev)
+    qq = (t[torch.from_numpy(rng.integers(0, n, nq_r)).to(dev)].float()
+          + torch.from_numpy(rng.normal(size=(nq_r, D)).astype(np.float32) * 8).to(dev))
+    for k in (10, 100):
+        for metric in ("l2sq", "cosine", "ip"):
+            rescore_variant(f"ragged {n} rows, k={k}", qq,
+                            scan_segs(qq, t, tn, v, k, metric=metric), t, tn, v, tr, k, metric)
+    # exact: integer-valued queries and rerank rows, every sum exact
+    qi = q.round()
+    ti = tape.float()
+    for k in (10, 100):
+        for metric in ("l2sq", "ip", "cosine"):
+            rescore_variant(f"integer-valued, k={k}", qi, scan_segs(qi, tape, xn, valid, k,
+                                                                     metric=metric),
+                            tape, xn, valid, ti, k, metric, exact=True)
+    # the control: phase C on bf16-rounded rerank rows must break the tolerance
+    m = rescore_m(100, segs[100], rr)
+    got = s._rescore_launch(q, segs[100], tape, xn, valid, rr, m, 100, s.Metric.L2SQ)
+    ctrl = s._rescore_chunks(q, segs[100], tape, xn, valid, rr.to(torch.bfloat16), m, 100,
+                             s.Metric.L2SQ)
+    cv = rescore_verdict(got, ctrl, q, segs[100], tape, xn, valid, rr, m, "l2sq")
+    if cv["ok"]:
+        fail(f"rescore_topk: the control (phase C on bf16 rerank rows) stays within the "
+             f"tolerance ({cv})")
+    log(f"  control, phase C on bf16-rounded rerank rows, k=100: breaks the tolerance "
+        f"({cv['why']})")
+    one_launch_no_sync(lambda: s.rescore_topk(q, segs[100], tape, xn, valid, rr, m, 100, "l2sq"),
+                       "rescore_topk")
+    one_launch_no_sync(lambda: s.rescore_topk(q[:1], segs[10][:1], tape, xn, valid, rr, 20, 10,
+                                              "l2sq"), "rescore_topk")
+    log("  rescore_topk on CUDA tensors: one launch, no host sync (sync debug mode \"error\")")
+    shapes = [rescore_timing(f"scan_search k={k}: {q.shape[0]} queries, keep {2 * k}", q,
+                             segs[k], tape, xn, valid, rr, k, out_dir) for k in (10, 100)]
+    shapes.append(rescore_timing("one query, k=100", q[:1], segs[100][:1], tape, xn, valid, rr,
+                                 100, out_dir))
+    top = shapes[1]
+    return dict(ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=None,
+                max_abs_err=verdicts[100]["max_abs_err"], shapes=shapes)
+
+
+@contextlib.contextmanager
+def plain_rescore():
+    """Phases B and C by their plain version while in place: `rescore_topk`
+    as `_rescore_chunks` (the gathered block in query chunks, the batched
+    product, `select_k`, the rerank and a stable sort), as the port scanned
+    before the rescore_topk kernel."""
+    from vss_tpu_torch.ops import scan as s
+
+    real = s.rescore_topk
+
+    def plain(q, segs, tape, x_norms, valid, rerank_tape, m, k, metric):
+        return s._rescore_chunks(q, segs, tape, x_norms, valid, rerank_tape, m, k,
+                                 s.Metric.parse(metric))
+
+    s.rescore_topk = plain
+    try:
+        yield
+    finally:
+        s.rescore_topk = real
+
+
+def scan_agree(vecs: np.ndarray, queries: np.ndarray):
+    """A check of `before_after` for a scan path with the plain phases B and
+    C before and the kernel after: +inf in the same places, distances
+    within REL_TOL of their magnitude, ids equal except at a near-tie
+    (both ids' float64 distances to the query, from the f32 corpus, within
+    that tolerance). Returns the counts; fails otherwise."""
+    def agree(label, before, after) -> dict:
+        (bd, bi), (ad, ai) = before, after
+        fin = np.isfinite(bd)
+        if not np.array_equal(np.isfinite(ad), fin):
+            fail(f"{label}: finite distances in other places before and after")
+        scale = float(np.abs(bd[fin]).max())
+        err = float(np.abs(ad[fin] - bd[fin]).max())
+        if not err <= REL_TOL * scale:
+            fail(f"{label}: distances after differ from before by {err} (tol "
+                 f"{REL_TOL * scale})")
+        rows = np.nonzero((ai != bi).any(1))[0]
+        bad = near = 0
+        for b in rows:
+            for j in np.nonzero(ai[b] != bi[b])[0]:
+                a, w = int(ai[b, j]), int(bi[b, j])
+                t = true_dists(queries[b:b + 1], vecs[[a, w]][None], "l2sq")[0]
+                if abs(t[0] - t[1]) <= REL_TOL * scale:
+                    near += 1
+                else:
+                    bad += 1
+        log(f"{label}: distances within {err:.6g} (tol {REL_TOL * scale:.6g}); {rows.size} rows "
+            f"with other ids, {near} near-ties, {bad} not")
+        if bad:
+            fail(f"{label}: {bad} ids differ before and after at no near-tie")
+        return {"max_abs_err": err, "rows_differ": int(rows.size), "near_ties": near}
+    return agree
 
 
 # ----------------------------------------------------------------------
@@ -2855,6 +3184,7 @@ def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) ->
     # the cost model: rates measured here, then the planner's choices
     rates = step("calibrate", lambda: cost.calibrate(
         persist=False, n_rows=N_CALIBRATE, device=dev))
+    need("calibrate", "native_segmin", "rescore_topk")
     log(f"cost model rates on {smi}: " + json.dumps(
         {k: rates[k] for k in ("stream_bw", "random_bw", "gather_bw", "tape_bw")}))
     db.sql("SET hnsw_cost_model = true")
@@ -2868,7 +3198,7 @@ def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) ->
     exact_checks = {}
     if "EXACT_SCAN" in choices["join of 2048"]:
         res = step("exact_scan_join", lambda: db.sql(kj_idx))
-        need("exact_scan_join", "native_segmin")
+        need("exact_scan_join", "native_segmin", "rescore_topk")
         got, _ = join_ids(res, "r_id", "l_qid", nq, K)
         exact_checks["flagship"] = recall(got, truth)
     # a corpus where the exact scan wins: the first N_COST_SMALL rows
@@ -2878,7 +3208,7 @@ def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) ->
     ks_sql = f"SELECT l_qid, r_id FROM knn_join(queries, items_small, qvec, vec, {K})"
     choices["join of 2048, small corpus"] = explain(db, ks_sql, "EXACT_SCAN_JOIN").splitlines()[1]
     res = step("exact_scan_join small", lambda: db.sql(ks_sql))
-    need("exact_scan_join small", "native_segmin")
+    need("exact_scan_join small", "native_segmin", "rescore_topk")
     got, _ = join_ids(res, "r_id", "l_qid", nq, K)
     exact_checks[f"{N_COST_SMALL} rows"] = recall(got, oracle(K, x[:N_COST_SMALL]))
     log(f"cost model: EXACT_SCAN recall@10 {exact_checks}")
@@ -3137,7 +3467,7 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
     _, f_ids = run_path(f"search k={K} ef={EF} scale_ef=False",
                         lambda qb: idx.search(qb, K, ef=EF, scale_ef=False), graph_kernels, N)
     s_d, s_ids = run_path(f"scan_search k={K}", lambda qb: idx.scan_search(qb, K),
-                          ("native_segmin",), N)
+                          ("native_segmin", "rescore_topk"), N)
     srow = idx.slot_rowid_array()
     if srow.shape != (SHARDS, idx.graphs[0].capacity):
         fail(f"slot_rowid_array is {srow.shape}")
@@ -3145,7 +3475,7 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
     _, gm_ids = run_path("search, filter id % 2 = 0", lambda qb: idx.search(
         qb, K, ef=EF, filter_mask=mask), graph_kernels, N)
     _, sm_ids = run_path("scan_search, filter id % 2 = 0", lambda qb: idx.scan_search(
-        qb, K, filter_mask=mask), ("native_segmin",), N)
+        qb, K, filter_mask=mask), ("native_segmin", "rescore_topk"), N)
     even = torch.from_numpy(np.arange(N) % 2 == 0).to(dev)
     truth_even = oracle(x, even)
     if (gm_ids % 2).any() or (sm_ids % 2).any():
@@ -3189,6 +3519,10 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
         "before_after": {
             "scan_search k=10": before_after("sharded scan_search k=10",
                                              lambda qb: idx.scan_search(qb, K), q_all, out_dir),
+            "scan_search k=10, phases B and C": before_after(
+                "sharded scan_search k=10, phases B and C", lambda qb: idx.scan_search(qb, K),
+                q_all, out_dir, before_ctx=plain_rescore, agree=scan_agree(vecs, queries),
+                truth=truth),
             "search k=10 ef=64": before_after("sharded search k=10 ef=64",
                                               lambda qb: idx.search(qb, K, ef=EF), q_all,
                                               out_dir, before_fn=parent_search)},
@@ -3231,7 +3565,7 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
     _, c_ids = run_path("search after compact", lambda qb: idx.search(qb, K, ef=EF),
                         graph_kernels, n1)
     _, cs_ids = run_path("scan_search after compact", lambda qb: idx.scan_search(qb, K),
-                         ("native_segmin",), n1)
+                         ("native_segmin", "rescore_topk"), n1)
     for label, ids_ in (("tombstones", t_ids), ("compact", c_ids), ("compact scan", cs_ids)):
         if not live[ids_].all():
             fail(f"sharded {label}: a deleted row came back")
@@ -3523,9 +3857,10 @@ def iid_arm(dev, launches, smem_ns: float, out_dir: str) -> dict:
     stats = index.build_stats
     if stats.get("mode") != "hybrid" or not stats.get("scan_fallback"):
         fail(f"the iid build took {stats}; expected the hybrid mode with its scan fallback")
-    if counts["native_segmin"] <= 1:
-        fail(f"K2 was launched {counts['native_segmin']} times during the iid build: the scan "
-             f"pass did not run on it")
+    if counts["native_segmin"] <= 1 or counts["rescore_topk"] <= 1:
+        fail(f"K2 and rescore_topk were launched {counts['native_segmin']} and "
+             f"{counts['rescore_topk']} times during the iid build: the scan pass did not run "
+             f"on it")
     xs = torch.from_numpy(iv).to(dev)
     truth = batched_ids(lambda qb: bruteforce_topk(qb, xs, K, "l2sq", device=dev), iq)
     del xs
@@ -3664,6 +3999,37 @@ def k2_only(dev, vecs, queries, smi, krng) -> int:
     return 0
 
 
+def rescore_only(dev, vecs, queries, smi, out_dir) -> int:
+    """`--rescore-only`: check_rescore on the corpus quantized as the int8
+    index quantizes it (the index's capacity of rows, the last 8 invalid,
+    the f32 rerank tape of the scaled rows), without the graph build; then
+    `scan_topk` at `scan_search`'s k = 10 and 100 (keep 2k) with the plain
+    phases B and C before and the kernel after, in turns."""
+    from vss_tpu_torch.ops.scan import scan_topk
+
+    scale = float(np.abs(vecs).max()) / 127.0
+    cap = N + 8
+    rr = torch.zeros((cap, D), dtype=torch.float32, device=dev)
+    rr[:N] = torch.from_numpy(vecs).to(dev) / scale
+    tape = rr.round().clamp(-127, 127).to(torch.int8)
+    xn = (tape.float() ** 2).sum(-1)
+    valid = torch.arange(cap, device=dev) < N
+    q_all = torch.from_numpy(queries).to(dev)
+    result = check_rescore(dev, tape, xn, valid, rr, (q_all[:BATCH] / scale).contiguous(),
+                           np.random.default_rng(2), out_dir)
+    for k in (K, K_DEEP):
+        def fn(qb, k=k):
+            d, i = scan_topk(qb / scale, tape, k, "l2sq", valid_mask=valid, x_norms=xn,
+                             rerank_tape=rr, keep=2 * k, device=dev)
+            return d * scale * scale, i
+        result[f"scan_topk k={k}"] = before_after(
+            f"scan_topk k={k}, phases B and C", fn, q_all, out_dir, before_ctx=plain_rescore,
+            agree=scan_agree(vecs, queries))
+    log(smi)
+    log(json.dumps({"rescore_topk": result}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3700,6 +4066,11 @@ def main() -> int:
                          "check_pivot_seeds over the corpus quantized to int8 with a pivot "
                          "sample drawn as the index draws its levels, without the index build; "
                          "prints the kernel's entry and no result line")
+    ap.add_argument("--rescore-only", action="store_true",
+                    help="build rescore.cu, scan.cu and selectk.cu alone and run check_rescore "
+                         "on the corpus quantized to int8, then scan_topk at k=10 and 100 with "
+                         "the plain phases B and C and with the kernel, without the index "
+                         "build; prints the kernel's entry and no result line")
     ap.add_argument("--gist", action="store_true",
                     help="also build and search the 1,000,000 x 960 cosine arm (made on the "
                          "card; adds minutes)")
@@ -3734,6 +4105,8 @@ def main() -> int:
         libs = ["pairtopk", "distance", "selectk"]
     if args.pivot_seeds_only:
         libs = ["seeds", "selectk", "gather"]
+    if args.rescore_only:
+        libs = ["rescore", "scan", "selectk"]
     if args.beam_serving:
         libs = ["beam", "gather"]
     log(f"build: {csrc.build(libs):.2f} s for {libs}")
@@ -3778,6 +4151,8 @@ def main() -> int:
         log(json.dumps({"pivot_seeds": check_pivot_seeds(dev, index, q_scaled, wave_scaled,
                                                          out_dir)}))
         return 0
+    if args.rescore_only:
+        return rescore_only(dev, vecs, queries, smi, out_dir)
     if args.database_only:
         launches = {k: 0 for k in csrc.KERNELS}
         summary = database_phase(args.seed, dev, smi, vecs, queries, centers, launches,
@@ -3821,10 +4196,10 @@ def main() -> int:
         f"fallback {'ran' if build_stats['scan_fallback'] else 'did not run'}, "
         f"{build_stats['bridged']} nodes bridged by the repair, {unreached} of {N} still out of "
         f"reach of the entry over base-layer edges (64 sweeps)")
-    # the sampled oracle runs the scan (K2); refine, the upper levels and
-    # the back-links select neighbours (the select_neighbors kernel), the
-    # back-links gather their rows (K5)
-    for kname in ("native_segmin", "gather_rows", "select_neighbors"):
+    # the sampled oracle runs the scan (K2, then rescore_topk); refine, the
+    # upper levels and the back-links select neighbours (the
+    # select_neighbors kernel), the back-links gather their rows (K5)
+    for kname in ("native_segmin", "rescore_topk", "gather_rows", "select_neighbors"):
         if build_counts[kname] <= 0:
             fail(f"kernel {kname} was not launched by the auto build")
 
@@ -3871,6 +4246,8 @@ def main() -> int:
     del sk_calls
     wave_scaled = (torch.from_numpy(wave_vecs).to(dev) / idx.vector_scale).contiguous()
     results["pivot_seeds"] = check_pivot_seeds(dev, idx, q_scaled, wave_scaled, out_dir)
+    results["rescore_topk"] = check_rescore(dev, idx.graph.vectors, idx.norms(), idx.graph.valid,
+                                            idx.rerank_tape, q_scaled, krng, out_dir)
     host_us = host_us_per_call(dev, idx.graph.vectors, idx.graph.adj0, q_scaled)
     torch.cuda.synchronize()
 
@@ -3971,6 +4348,13 @@ def main() -> int:
             ("oracle k=10", lambda qb: bruteforce_topk(qb, x, K, "l2sq", device=dev)),
             ("scan_search k=10", lambda qb: idx.scan_search(qb, K)),
             ("scan_search k=100", lambda qb: idx.scan_search(qb, K_DEEP)))}
+    # the scans: the plain phases B and C (the parent's) before, the
+    # rescore_topk kernel after
+    for k, truth in ((K, gt_i), (K_DEEP, gt100_i)):
+        label = f"scan_search k={k}, phases B and C"
+        before_vs_after[label] = before_after(
+            label, lambda qb, k=k: idx.scan_search(qb, k), q_all, out_dir,
+            before_ctx=plain_rescore, agree=scan_agree(vecs, queries), truth=truth)
     # the graph search: the parent's seeding (`seeds_route`) before, the
     # pivot_seeds kernel after
     seed_rows = {}
@@ -4013,6 +4397,7 @@ def main() -> int:
     needed = {"scan_segmin": ["oracle k=10"], "pairwise_topk": ["oracle k=100"],
               "pairwise": ["oracle k=300"],
               "native_segmin": ["scan_search k=10"], "beam_search": [graph_path, wide_path],
+              "rescore_topk": ["scan_search k=10", "scan_search k=100"],
               "select_k": ["oracle k=10", "scan_search k=10", "scan_search k=100"],
               # the seeding and the rerank gather of the graph search; K1 on
               # its own only past select_k's widest k
@@ -4022,6 +4407,10 @@ def main() -> int:
         for label in labels:
             if per_path[label][kname] <= 0:
                 fail(f"kernel {kname} was not launched on the path '{label}'")
+    for label in ("scan_search k=10", "scan_search k=100"):
+        if per_path[label]["rescore_topk"] != NQ // BATCH:
+            fail(f"{label}: rescore_topk launched {per_path[label]['rescore_topk']} times in "
+                 f"{NQ // BATCH} batches, not once a batch")
     if per_path[graph_path]["gather_distances"] or per_path[graph_path]["select_k"]:
         fail(f"{graph_path} launched gather_distances or select_k: its seeding is pivot_seeds")
     log(f"{graph_path}, {NQ // BATCH} batches: beam_search launched "
@@ -4079,13 +4468,16 @@ def main() -> int:
                         "vss_tpu/ops/gather.py:142 (K1, the seed rescoring of "
                         "vss_tpu/index/search.py:520-526) with the XLA pivot seeding of "
                         "vss_tpu/index/search.py:451-493 (epilogue, mask, top_k, slot map)"),
+        "rescore_topk": ("vss_tpu_torch/csrc/rescore.cu",
+                         "vss_tpu/ops/scan.py:216-321 (the XLA after K2: _rescore_native, "
+                         "_gather_segment_blocks, _rescore_native_block)"),
     }
     table = [
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
          "launches": launches[kname], **results[kname]}
         for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
                       "pairwise_topk", "gather_rows", "beam_search", "greedy_descent",
-                      "select_neighbors", "select_k", "pivot_seeds")
+                      "select_neighbors", "select_k", "pivot_seeds", "rescore_topk")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

@@ -41,6 +41,7 @@ SOURCES = {
     "selectk": "selectk.cu",
     "pairtopk": "pairtopk.cu",
     "seeds": "seeds.cu",
+    "rescore": "rescore.cu",
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }

@@ -12,15 +12,20 @@ Reproduces `vss_tpu/ops/scan.py`, the serving path of the exact scan:
     top-(k+margin) supers by minimum hold them all); the selected
     supers' 4 sub-minima each then select the `keep` best sub-segments
     by the same bound.
-  phase B (rescore): gather the kept sub-segments' rows from the stored
-    tape and score them: bf16 inputs in f32 when a rerank tape follows,
-    exact f32 otherwise.
-  phase C (exact rerank): the best m = max(2k, k+6) rows are rescored
-    from the f32 side tape with direct-difference l2sq and sorted.
+  phase B (rescore): score the kept sub-segments' rows of the stored
+    tape: bf16 inputs in f32 when a rerank tape follows, exact f32
+    otherwise, and keep the best m = max(2k, k+6) (m = k without one).
+  phase C (exact rerank): those m rows are rescored from the f32 side
+    tape with direct-difference l2sq and sorted.
 
-Phases B and C and the selections are plain PyTorch (XLA in the JAX
-package). The TPU tile sizes, corpus chunking and VMEM budgets are not
-carried over.
+Phases B and C are one call of `rescore_topk`: on CUDA one launch of the
+`rescore_topk` kernel (`csrc/rescore.cu`, replacing the XLA after K2,
+`vss_tpu/ops/scan.py:216-321`) for all queries, with no host sync and no
+gathered block in device memory; on the CPU `_rescore_plain` (plain
+PyTorch, its reference on the card) over query chunks of at most
+~_BLOCK_ELEMS gathered values. The selections of phase A are plain
+PyTorch around `select_k`. The TPU tile sizes, corpus chunking and VMEM
+budgets are not carried over.
 """
 from __future__ import annotations
 
@@ -33,12 +38,13 @@ from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue
 from vss_tpu_torch.ops.topk import (
     _BLOCK_ELEMS,
     _SEG,
+    SELECT_K_MAX,
     _select_min_k,
     bruteforce_topk,
 )
-from vss_tpu_torch.utils import cdiv, pad_to, resolve_device
+from vss_tpu_torch.utils import cdiv, pad_dim, pad_to, resolve_device
 
-__all__ = ["scan_topk", "native_scan_supported", "SCAN_K_MAX"]
+__all__ = ["scan_topk", "rescore_topk", "native_scan_supported", "SCAN_K_MAX"]
 
 _INF = float("inf")
 
@@ -130,9 +136,10 @@ def _select_subsegments(subs: torch.Tensor, keep: int) -> torch.Tensor:
     return torch.where(torch.isfinite(ssd), sub_global, -1)
 
 
-def _rescore_native_block(q, segs, tape, x_norms, valid, rerank_tape, m, k,
-                          metric: Metric):
-    """Phases B and C for one chunk of queries."""
+def _phase_b_plain(q, segs, tape, x_norms, valid, rerank: bool, metric: Metric):
+    """Phase B of `_rescore_plain`: each query's candidate rows [nq,
+    keep*32] (-1 for a -1 segment) and their values, +inf where the row is
+    past the tape, invalid, or its value NaN."""
     nq = q.shape[0]
     nx = tape.shape[0]
     keep = segs.shape[1]
@@ -141,7 +148,7 @@ def _rescore_native_block(q, segs, tape, x_norms, valid, rerank_tape, m, k,
     rows = torch.where((segs >= 0).repeat_interleave(_SUBSEG, 1), rows, -1)
     safe = rows.clamp(0, nx - 1).long()
     xg = tape[safe]  # [nq, C, d] in the stored dtype
-    if rerank_tape is not None:
+    if rerank:
         # bf16 inputs, f32 sums: int8 values are exact in bf16 and phase C
         # reranks the m-pool at f32, so only the q rounding can perturb
         # the m boundary, which the m > k margin covers
@@ -155,7 +162,14 @@ def _rescore_native_block(q, segs, tape, x_norms, valid, rerank_tape, m, k,
     xn = x_norms[safe]
     dd = _epilogue(dots, qn, xn, metric)
     ok = (rows >= 0) & (rows < nx) & valid[safe]
-    dd = torch.where(ok & ~torch.isnan(dd), dd, _INF)
+    return rows, torch.where(ok & ~torch.isnan(dd), dd, _INF)
+
+
+def _rescore_plain(q, segs, tape, x_norms, valid, rerank_tape, m, k, metric: Metric):
+    """Plain version of the rescore_topk kernel: phases B and C for one
+    chunk of queries (fewer than k columns where the candidates are fewer
+    than k)."""
+    rows, dd = _phase_b_plain(q, segs, tape, x_norms, valid, rerank_tape is not None, metric)
     bd, bp = _select_min_k(dd, m)
     bi = rows.gather(1, bp.long())
     bi = torch.where(torch.isfinite(bd), bi, -1)
@@ -171,11 +185,105 @@ def _rescore_native_block(q, segs, tape, x_norms, valid, rerank_tape, m, k,
     else:
         rdots = torch.einsum("bcd,bd->bc", rv, q)
         rn = (rv * rv).sum(-1)
-        rd = _epilogue(rdots, qn, rn, metric)
+        rd = _epilogue(rdots, (q * q).sum(1, keepdim=True), rn, metric)
     rd = torch.where((bi >= 0) & ~torch.isnan(rd), rd, _INF)
     rd, order = torch.sort(rd, dim=1, stable=True)
     ri = bi.gather(1, order)
     return rd[:, :k], torch.where(torch.isfinite(rd[:, :k]), ri[:, :k], -1)
+
+
+_RESCORE = csrc.register(csrc.Kernel(
+    "rescore_topk", "rescore", "vss_rescore_topk",
+    [csrc.PTR] * 10 + [csrc.I32, csrc.I32, csrc.I64] + [csrc.I32] * 7,
+))
+
+
+def _rescore_splits(nq: int, keep: int) -> int:
+    """Blocks per query for rescore_topk: one, unless queries are too few
+    to give the card's 132 SMs about 4 blocks each (512 in all); then
+    enough for that, each scoring at least 8 sub-segments."""
+    return max(1, min(cdiv(512, max(nq, 1)), keep // 8))
+
+
+def _rescore_chunks(q, segs, tape, x_norms, valid, rerank_tape, m, k, metric: Metric):
+    """`_rescore_plain` over query chunks that gather at most
+    ~_BLOCK_ELEMS values, padded to k columns (+inf, -1) where the
+    candidates are fewer than k."""
+    nq = q.shape[0]
+    cq = max(1, _BLOCK_ELEMS // max(segs.shape[1] * _SUBSEG * q.shape[1], 1))
+    parts = [
+        _rescore_plain(q[s:s + cq], segs[s:s + cq], tape, x_norms, valid, rerank_tape, m, k,
+                       metric)
+        for s in range(0, nq, cq)
+    ]
+    dd = torch.cat([p[0] for p in parts])
+    ii = torch.cat([p[1] for p in parts])
+    if dd.shape[1] < k:
+        dd = pad_dim(dd, 1, k, value=_INF)
+        ii = pad_dim(ii, 1, k, value=-1)
+    return dd, ii
+
+
+def rescore_topk(q, segs, tape, x_norms, valid, rerank_tape, m: int, k: int, metric):
+    """Phases B and C of `scan_topk`: the k best rows of each query among
+    its kept sub-segments. q [nq, d] f32; segs [nq, keep] int32
+    sub-segment ids (-1 pad); tape [nx, d] int8 / bf16 / f32; x_norms [nx]
+    f32; valid [nx] bool; rerank_tape [nx, d] f32 / bf16 or None; m the
+    phase-B pool (k without a rerank tape). Returns (dists [nq, k] f32
+    ascending, slot ids [nq, k] int32, -1 where the distance is not
+    finite). CUDA tensors: one launch of the rescore_topk kernel, no host
+    sync; CPU tensors: `_rescore_plain` over query chunks."""
+    metric = Metric.parse(metric)
+    if q.shape[0] == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=q.device),
+                torch.empty((0, k), dtype=torch.int32, device=q.device))
+    if tape.device.type == "cpu":
+        return _rescore_chunks(q, segs, tape, x_norms, valid, rerank_tape, m, k, metric)
+    return _rescore_launch(q, segs, tape, x_norms, valid, rerank_tape, m, k, metric)
+
+
+def _rescore_launch(q, segs, tape, x_norms, valid, rerank_tape, m: int, k: int,
+                    metric: Metric, splits: Optional[int] = None):
+    """One launch of the rescore_topk kernel with `splits` blocks a query
+    (default `_rescore_splits`'s choice; tests force either layout)."""
+    nq, keep = segs.shape
+    nx, d = tape.shape
+    if q.shape != (nq, d) or x_norms.shape != (nx,) or valid.shape != (nx,) \
+            or (rerank_tape is not None and (rerank_tape.shape != (nx, d) or rerank_tape.dtype
+                                             not in (torch.float32, torch.bfloat16))) \
+            or not (1 <= m <= SELECT_K_MAX and 1 <= k <= SELECT_K_MAX and 1 <= keep < 2 ** 26):
+        rr = None if rerank_tape is None else (rerank_tape.dtype, tuple(rerank_tape.shape))
+        raise ValueError(
+            f"rescore_topk: q {tuple(q.shape)}, segs {tuple(segs.shape)}, tape "
+            f"{tuple(tape.shape)}, norms {tuple(x_norms.shape)}, valid {tuple(valid.shape)}, "
+            f"rerank {rr}, m={m}, k={k} (m and k in 1 .. {SELECT_K_MAX})")
+    q = csrc.operand(q.float())
+    qn = csrc.operand((q * q).sum(1))
+    segs = csrc.operand(segs.to(torch.int32))
+    tape = csrc.operand(tape)
+    xn = csrc.operand(x_norms.float())
+    valid = csrc.operand(valid.to(torch.bool))
+    operands = [q, qn, segs, tape, xn, valid]
+    rptr, rcode = None, -1
+    if rerank_tape is not None:
+        rerank_tape = csrc.operand(rerank_tape)
+        operands.append(rerank_tape)
+        rptr, rcode = rerank_tape.data_ptr(), csrc.dtype_code(rerank_tape.dtype)
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=tape.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=tape.device)
+    operands += [out_d, out_i]
+    splits = _rescore_splits(nq, keep) if splits is None else splits
+    wptr = None
+    if splits > 1:
+        mb = min(m, keep * _SUBSEG)
+        ws = torch.empty((nq * splits * mb * 8 + nq * 4,), dtype=torch.uint8, device=tape.device)
+        operands.append(ws)
+        wptr = ws.data_ptr()
+    _RESCORE.launch(operands, q.data_ptr(), qn.data_ptr(), segs.data_ptr(), tape.data_ptr(),
+                    xn.data_ptr(), valid.data_ptr(), rptr, out_d.data_ptr(), out_i.data_ptr(),
+                    wptr, nq, keep, nx, d, csrc.dtype_code(tape.dtype), rcode,
+                    METRIC_IDS[metric], m, k, splits)
+    return out_d, out_i
 
 
 def scan_topk(
@@ -240,11 +348,6 @@ def scan_topk(
     segs = _select_subsegments(subs, keep)
     has_rr = rerank_tape is not None
     m = min(max(2 * k, k + 6), segs.shape[1] * _SUBSEG) if has_rr else k
-    # phases B and C over query chunks that gather at most ~_BLOCK_ELEMS values
-    cq = max(1, _BLOCK_ELEMS // max(segs.shape[1] * _SUBSEG * q.shape[1], 1))
-    parts = [
-        _rescore_native_block(q[s:s + cq], segs[s:s + cq], tape, x_norms,
-                              valid_mask, rerank_tape, m, k, metric)
-        for s in range(0, nq, cq)
-    ]
-    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    # phases B and C: on CUDA one rescore_topk launch for every query, no
+    # gathered block; on the CPU query chunks of ~_BLOCK_ELEMS gathered values
+    return rescore_topk(q, segs, tape, x_norms, valid_mask, rerank_tape, m, k, metric)
