@@ -8,6 +8,8 @@
     python3 chip_smoke.py --pairwise-topk-only  # the pairwise_topk kernel alone
     python3 chip_smoke.py --pivot-seeds-only  # the pivot_seeds kernel alone
     python3 chip_smoke.py --rescore-only   # the rescore_topk kernel alone
+    python3 chip_smoke.py --k2-only        # K2 (native_segmin) alone
+    python3 chip_smoke.py --k2-only --k2-parent DIR  # and DIR's K2 in turns
 
 Phases, each of which fails the run (nonzero exit) on any fault:
 
@@ -413,8 +415,10 @@ def check_k2(dev, tape, xn, valid, q_scaled, rng):
                              tape, xn, valid, metric, proxy_scale(qb[clean], tape, metric))
     check(f"main int8 {tape.shape[0]} x {D} l2sq, one query", qb[:1], tape, xn, valid, "l2sq",
           proxy_scale(qb[:1], tape, "l2sq"))
+    # f32 d=800: 64 queries do not fit beside the ring, so the queries are
+    # streamed a slab at a time; int8 d=960: resident, 64 a tile, in slabs
     for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128), (torch.int8, 100),
-                     (torch.int8, 960)):
+                     (torch.float32, 800), (torch.int8, 960)):
         n = 70_000 + 37  # ragged: not a multiple of 128
         if dtype == torch.int8:
             t = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(dev)
@@ -437,17 +441,124 @@ def check_k2(dev, tape, xn, valid, q_scaled, rng):
     tflops = ops / ms / 1e9
     log(f"  main shape: kernel {ms:.4f} ms, {tflops:.1f} TFLOP/s ({ops / 1e9:.1f} GFLOP), "
         f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.3f} ms")
-    # a batch at the GIST width, on the loop's last tape (int8, d=960: 15
-    # steps of 64 columns a block against 2 at d=128): the rate of the
-    # column loop itself
+    # a batch at the GIST width, on the loop's last tape (int8, d=960: eight
+    # slabs of 128 columns a tile, 64 queries a tile, eight query tiles)
     q960 = torch.from_numpy(rng.normal(size=(BATCH, 960)).astype(np.float32) * 5).to(
         dev, torch.bfloat16)
     ms960 = cuda_ms(lambda: s.native_segmin(q960, t, tn, v, "l2sq"), 20)
     tflops960 = 2.0 * BATCH * t.shape[0] * 960 / ms960 / 1e9
     log(f"  {BATCH} queries x int8 {t.shape[0]} x 960: kernel {ms960:.4f} ms, "
         f"{tflops960:.1f} TFLOP/s")
+    # one query (a SQL statement's): bound by the tape's bytes
+    ms1 = cuda_ms(lambda: s.native_segmin(qb[:1], tape, xn, valid, "l2sq"), 20)
+    b1_ms, b1_by = bound(D * 2 + nx * (D + 5) + (nx // 32) * 4, 2.0 * nx * D, "bf16")
+    log(f"  one query x int8 {nx} x {D}: kernel {ms1:.4f} ms, bound {b1_ms:.4f} ms ({b1_by})")
+    # the bulk build's scan pass: SCAN_BATCH of its rows as queries over
+    # the first N_IID rows
+    tb = tape[:N_IID]
+    qs = tb[:SCAN_BATCH].float().to(torch.bfloat16)
+    vb = torch.ones(N_IID, dtype=torch.bool, device=dev)
+    err_b = check(f"build shape, first 1024 of {SCAN_BATCH} queries x int8 {N_IID} x {D}",
+                  qs[:1024], tb, xn[:N_IID], vb, "l2sq", proxy_scale(qs[:1024], tb, "l2sq"))
+    ms_b = cuda_ms(lambda: s.native_segmin(qs, tb, xn[:N_IID], vb, "l2sq"), 10)
+    ops_b = 2.0 * SCAN_BATCH * N_IID * D
+    bb_ms, bb_by = bound(SCAN_BATCH * D * 2 + N_IID * (D + 5) + (N_IID // 32) * SCAN_BATCH * 4,
+                         ops_b, "bf16")
+    log(f"  build shape {SCAN_BATCH} queries x int8 {N_IID} x {D}: kernel {ms_b:.4f} ms, "
+        f"{ops_b / ms_b / 1e9:.1f} TFLOP/s, bound {bb_ms:.4f} ms ({bb_by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                max_abs_err=errs["l2sq"], tflops=tflops, ms_d960=ms960, tflops_d960=tflops960)
+                max_abs_err=errs["l2sq"], tflops=tflops, ms_d960=ms960, tflops_d960=tflops960,
+                ms_one_query=ms1, bound_ms_one_query=b1_ms,
+                build_shape={"queries": SCAN_BATCH, "rows": N_IID, "ms": ms_b,
+                             "tflops": ops_b / ms_b / 1e9, "bound_ms": bb_ms,
+                             "max_abs_err": err_b},
+                ptxas=ptxas_entries("scan", "native_segmin_kernel"))
+
+
+def ptxas_entries(lib: str, needle: str) -> list:
+    """Registers, spill bytes and performance warnings of each kernel whose
+    mangled name holds `needle`, from lib's build log (`nvcc -Xptxas -v`),
+    logged and returned."""
+    from vss_tpu_torch import csrc
+
+    path = os.path.join(csrc.BUILD_DIR, f"{lib}.log")
+    if not os.path.exists(path):  # built before this process, log kept
+        return []
+    entries, cur = [], None
+    for line in open(path).read().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1), "warnings": []} if needle in m.group(1) else None
+            if cur is not None:
+                entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        if "Performance" in line or "serialized" in line:
+            cur["warnings"].append(line.strip())
+    for e in entries:
+        log(f"  ptxas {e['entry'][:60]}: {e.get('registers')} registers, spill "
+            f"{e.get('spill_stores')} / {e.get('spill_loads')} bytes, warnings {e['warnings']}")
+    return entries
+
+
+def load_parent_k2(parent: str):
+    """K2 of another checkout (`parent`/vss_tpu_torch/csrc/scan.cu, whose C
+    entry takes K2's arguments), built by nvcc into _build/parent_k2/, as
+    a ctypes function with K2's argument types."""
+    import ctypes
+
+    from vss_tpu_torch import csrc
+    from vss_tpu_torch.ops import scan as s
+
+    src_dir = os.path.join(os.path.abspath(parent), "vss_tpu_torch", "csrc")
+    out_dir = os.path.join(csrc.BUILD_DIR, "parent_k2")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "libscan.so")
+    t0 = time.perf_counter()
+    subprocess.run([csrc._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", src_dir, "-o", out,
+                    os.path.join(src_dir, "scan.cu")], check=True, capture_output=True,
+                   text=True, timeout=600)
+    log(f"parent K2 from {src_dir} built in {time.perf_counter() - t0:.2f} s")
+    fn = getattr(ctypes.CDLL(out), s._K2.symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = s._K2.argtypes + [csrc.PTR]
+    return fn
+
+
+@contextlib.contextmanager
+def parent_k2(fn):
+    """K2's launches go to `fn` (load_parent_k2's) while in place."""
+    from vss_tpu_torch.ops import scan as s
+
+    s._K2._entry()
+    real = s._K2._fn
+    s._K2._fn = fn
+    try:
+        yield
+    finally:
+        s._K2._fn = real
+
+
+def k2_turns(label: str, call, old_fn, reps: int) -> dict:
+    """`call` with the parent's K2 (before) and this one (after) in turns,
+    before, after, after, before: device ms by CUDA events, each the mean of
+    `reps` calls."""
+    ms = {"before": [], "after": []}
+    for which in ("before", "after", "after", "before"):
+        with parent_k2(old_fn) if which == "before" else contextlib.nullcontext():
+            ms[which].append(cuda_ms(call, reps))
+    mean = {w: sum(v) / len(v) for w, v in ms.items()}
+    log(f"{label}: parent's K2 {mean['before']:.4f} ms {[round(t, 4) for t in ms['before']]}, "
+        f"this K2 {mean['after']:.4f} ms {[round(t, 4) for t in ms['after']]}")
+    return {"before_ms": mean["before"], "after_ms": mean["after"], "runs": ms}
 
 
 def check_k3(dev, x, q, rng):
@@ -3982,18 +4093,58 @@ def beam_serving(dev, vecs, queries, smi, path) -> int:
     return 0
 
 
-def k2_only(dev, vecs, queries, smi, krng) -> int:
+def k2_only(dev, vecs, queries, smi, krng, out_dir, parent=None) -> int:
     """`--k2-only`: check_k2 on the corpus quantized as the int8 index
     quantizes it, with the index's capacity of rows (the last 8 invalid),
-    and without the graph build."""
+    and without the graph build. With `parent` (`--k2-parent`), that
+    checkout's K2 and this one in turns: K2 at the main shape, one query,
+    d=960 and the build's shape, and `scan_topk` at `scan_search`'s
+    settings (k = 10 and 100, keep 2k, the f32 rerank tape)."""
+    from vss_tpu_torch.ops import scan as s
+    from vss_tpu_torch.ops.scan import scan_topk
+
     scale = float(np.abs(vecs).max()) / 127.0
     cap = N + 8
-    tape = torch.zeros((cap, D), dtype=torch.int8, device=dev)
-    tape[:N] = torch.from_numpy(vecs).to(dev).div_(scale).round_().to(torch.int8)
+    rr = torch.zeros((cap, D), dtype=torch.float32, device=dev)
+    rr[:N] = torch.from_numpy(vecs).to(dev) / scale
+    tape = rr.round().clamp(-127, 127).to(torch.int8)
     xn = (tape.float() ** 2).sum(-1)
     valid = torch.arange(cap, device=dev) < N
-    q_scaled = (torch.from_numpy(queries[:BATCH]).to(dev) / scale).contiguous()
+    q_all = torch.from_numpy(queries).to(dev)
+    q_scaled = (q_all[:BATCH] / scale).contiguous()
     result = check_k2(dev, tape, xn, valid, q_scaled, krng)
+    if parent:
+        old = load_parent_k2(parent)
+        qb = q_scaled.to(torch.bfloat16)
+        q960 = torch.from_numpy(krng.normal(size=(BATCH, 960)).astype(np.float32) * 5).to(
+            dev, torch.bfloat16)
+        t960 = torch.from_numpy(krng.integers(-127, 128, (70_037, 960)).astype(np.int8)).to(dev)
+        n960 = (t960.float() ** 2).sum(-1)
+        v960 = torch.ones(t960.shape[0], dtype=torch.bool, device=dev)
+        tb, vb = tape[:N_IID], valid[:N_IID]
+        qs = tb[:SCAN_BATCH].float().to(torch.bfloat16)
+        turns = {
+            "main": k2_turns("K2 main shape", lambda: s.native_segmin(qb, tape, xn, valid, "l2sq"),
+                             old, 20),
+            "one query": k2_turns("K2 one query",
+                                  lambda: s.native_segmin(qb[:1], tape, xn, valid, "l2sq"), old, 20),
+            "d=960": k2_turns("K2 512 x int8 70,037 x 960",
+                              lambda: s.native_segmin(q960, t960, n960, v960, "l2sq"), old, 20),
+            "build shape": k2_turns(f"K2 {SCAN_BATCH} x int8 {N_IID} x {D}",
+                                    lambda: s.native_segmin(qs, tb, xn[:N_IID], vb, "l2sq"), old, 5),
+        }
+        for k in (K, K_DEEP):
+            def fn(qb, k=k):
+                d, i = scan_topk(qb / scale, tape, k, "l2sq", valid_mask=valid, x_norms=xn,
+                                 rerank_tape=rr, keep=2 * k, device=dev)
+                return d * scale * scale, i
+            with parent_k2(old):  # warm both before the turns
+                fn(q_all[:BATCH])
+            fn(q_all[:BATCH])
+            turns[f"scan_topk k={k}"] = before_after(
+                f"scan_topk k={k}, the parent's K2", fn, q_all, out_dir,
+                before_ctx=lambda: parent_k2(old), agree=scan_agree(vecs, queries))
+        result["parent_turns"] = turns
     log(smi)
     log(json.dumps({"native_segmin": result}))
     return 0
@@ -4039,6 +4190,10 @@ def main() -> int:
                     help="build K2 alone and run its checks and timing (check_k2) on a "
                          "synthetic 1,000,008 x 128 int8 tape, without the index build; "
                          "prints K2's entry and no result line")
+    ap.add_argument("--k2-parent", metavar="DIR", default=None,
+                    help="a checkout of another tree (its vss_tpu_torch/csrc/scan.cu): with "
+                         "--k2-only, its K2 and this one in turns, K2 alone and in scan_topk; "
+                         "in the full run, scan_search k=10 and 100 with each")
     ap.add_argument("--beam-serving", metavar="FILE", default=None,
                     help="time the beam_search kernel alone at the serving call over the 1M "
                          "index saved in FILE (built with auto and saved there first if FILE "
@@ -4098,7 +4253,7 @@ def main() -> int:
         fail("TF32 is on; the exact paths need full f32 products")
 
     # ---- phase 2: build
-    libs = ["scan"] if args.k2_only else sorted(csrc.SOURCES)
+    libs = ["scan", "selectk", "rescore"] if args.k2_only else sorted(csrc.SOURCES)
     if args.select_k_only:
         libs = ["selectk"]
     if args.pairwise_topk_only:
@@ -4123,7 +4278,8 @@ def main() -> int:
     vecs, queries, centers = sift_like(rng, N, NQ, D)
     log(f"data: {N} x {D} corpus, {NQ} queries in {time.perf_counter() - t0:.1f} s")
     if args.k2_only:
-        return k2_only(dev, vecs, queries, smi, np.random.default_rng(args.seed + 1))
+        return k2_only(dev, vecs, queries, smi, np.random.default_rng(args.seed + 1),
+                       args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces"), args.k2_parent)
     if args.beam_serving:
         return beam_serving(dev, vecs, queries, smi, args.beam_serving)
     out_dir = args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces")
@@ -4355,6 +4511,19 @@ def main() -> int:
         before_vs_after[label] = before_after(
             label, lambda qb, k=k: idx.scan_search(qb, k), q_all, out_dir,
             before_ctx=plain_rescore, agree=scan_agree(vecs, queries), truth=truth)
+    # with --k2-parent: the scans with that checkout's K2 before, this one
+    # after
+    if args.k2_parent:
+        k2_old = load_parent_k2(args.k2_parent)
+        for k, truth in ((K, gt_i), (K_DEEP, gt100_i)):
+            with parent_k2(k2_old):  # warm both before the turns
+                idx.scan_search(q, k)
+            idx.scan_search(q, k)
+            label = f"scan_search k={k}, the parent's K2"
+            before_vs_after[label] = before_after(
+                label, lambda qb, k=k: idx.scan_search(qb, k), q_all, out_dir,
+                before_ctx=lambda: parent_k2(k2_old), agree=scan_agree(vecs, queries),
+                truth=truth)
     # the graph search: the parent's seeding (`seeds_route`) before, the
     # pivot_seeds kernel after
     seed_rows = {}

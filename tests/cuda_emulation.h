@@ -6,19 +6,25 @@
 //
 // A block's threads are cooperative fibers (ucontext) run in turn by
 // `emu_launch`; a fiber runs until it reaches a barrier, then the next one
-// does. Every barrier, shuffle, ballot, warp reduction, `ldmatrix` and
-// `mma` (the stand-ins for csrc/mma.cuh) is a switch point, so the
-// emulation is only valid for kernels in which all threads of a warp
-// reach the same sequence of such calls (uniform control flow around
-// them). `__syncthreads` waits for every thread of the block: warps may
-// pass different numbers of warp-level switch points between two block
-// barriers (a warp that sorts alone, say). The launcher counts a
-// divergence (`emu_divergences`) and gives the block up when some fibers
-// end while others wait. Blocks run one after another. `cp.async` copies
-// (the stand-ins for csrc/cpasync.cuh) land only when their group is
-// awaited, so a read of a stage that was not awaited sees the old bytes.
-// It shows what a kernel computes, never how fast, and it cannot show a
-// missing barrier: between two switch points a fiber runs alone.
+// does. Every barrier, shuffle, ballot, warp reduction and `wgmma` wait
+// (the stand-ins for csrc/wgmma.cuh) is a switch point, so the emulation
+// is only valid for kernels in which all threads of a warp (of a
+// warpgroup, around `wgmma`) reach the same sequence of such calls
+// (uniform control flow around them). `__syncthreads` waits for every
+// thread of the block: warps may pass different numbers of warp-level
+// switch points between two block barriers (a warp that sorts alone,
+// say). A thread that waits on an mbarrier or a warpgroup's named barrier
+// spins, switching, until it completes. Warps may end while others go on
+// (a producer warp that ends first); the launcher counts a divergence
+// (`emu_divergences`) and gives the block up when threads end while a
+// thread of their warp, or a thread at `__syncthreads`, waits. Blocks run
+// one after another. `cp.async` copies (the stand-ins for
+// csrc/cpasync.cuh) land only when their group is awaited, bulk copies
+// only when a thread waits on their mbarrier, and `wgmma` products only at
+// the `wgmma_wait` that covers them, so a read of a stage or of an
+// accumulator that was not awaited sees the old bytes. It shows what a
+// kernel computes, never how fast, and it cannot show a missing barrier:
+// between two switch points a fiber runs alone.
 #pragma once
 #include <ucontext.h>
 
@@ -29,6 +35,8 @@
 #include <cstring>
 #include <deque>
 #include <functional>
+#include <map>
+#include <set>
 #include <vector>
 
 using std::isfinite;
@@ -61,6 +69,10 @@ struct uint2 {
 struct float4 {
   float x, y, z, w;
 };
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
   return {x, y, z, w};
 }
@@ -105,6 +117,15 @@ inline int __dp4a(int a, int b, int c) {
   return c;
 }
 
+// byte i of the result: byte (nibble i of sel) of the 8 bytes b:a
+inline unsigned __byte_perm(unsigned a, unsigned b, unsigned sel) {
+  const uint64_t v = (static_cast<uint64_t>(b) << 32) | a;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= static_cast<unsigned>((v >> (8 * ((sel >> (4 * i)) & 7))) & 0xffu) << (8 * i);
+  return r;
+}
+
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum {
@@ -112,8 +133,21 @@ enum {
   cudaErrorInvalidValue = 1,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
   cudaFuncAttributePreferredSharedMemoryCarveout = 9,
-  cudaSharedmemCarveoutMaxShared = 100
+  cudaSharedmemCarveoutMaxShared = 100,
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
 };
+// the emulated card: 4 SMs (so that a persistent grid's blocks each take
+// several tiles at test sizes) and the H100's shared memory a block
+constexpr int kEmuSms = 4;
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? kEmuSms : 232448;
+  return cudaSuccess;
+}
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return cudaSuccess;
@@ -129,8 +163,6 @@ struct Emu {
   int threads = 0;
   std::vector<char> ended;
   std::vector<uint32_t> slots;  // one value per thread, for warp exchanges
-  std::vector<uint32_t> frags;  // kFragWords per thread, for ldmatrix / mma
-  std::vector<const void*> rows;  // one address per thread, for ldmatrix
   std::vector<char*> stacks;
   std::function<void()> body;
   unsigned char* smem = nullptr;  // the block's dynamic shared memory
@@ -143,8 +175,34 @@ struct Emu {
   };
   std::vector<std::vector<Copy>> open;
   std::vector<std::deque<std::vector<Copy>>> committed;
+  // each thread's wgmma products: the open group, then the committed ones
+  struct Product {
+    float* d;
+    uint32_t a[4];
+    uint64_t desc;
+    int scale_d;
+  };
+  std::vector<std::vector<Product>> wg_open;
+  std::vector<std::deque<std::vector<Product>>> wg_committed;
+  // mbarriers by address: arrivals a phase, arrivals pending, bytes
+  // announced and not landed, phases completed, bulk copies not landed
+  struct Barrier {
+    int count = 0, pending = 0;
+    int64_t tx = 0;
+    int64_t phases = 0;
+    int64_t completed_round = -1;  // the launcher's round of the last completion
+    std::vector<Copy> copies;        // bulk copies, counted in tx
+    std::vector<Copy> async_copies;  // cp.async copies reported by an arrival
+    std::map<int, int> last_parity;  // each thread's last wait
+    std::set<int> waiting;           // the threads in mbar_wait now
+  };
+  std::map<const void*, Barrier> bars;
+  // named barriers (bar.sync id, 128): arrivals, completions
+  int named_count[16] = {};
+  int64_t named_gen[16] = {};
+  int64_t spins = 0;  // switches of threads waiting on a barrier, this block
+  int64_t round = 0;  // the launcher's rounds, this block
 };
-constexpr int kFragWords = 6;  // an mma's A (4 words) and B (2 words)
 inline Emu emu;
 inline int emu_divergences = 0;
 
@@ -275,70 +333,253 @@ inline void cp_async_wait() {
   }
 }
 
-// ---- warp-level matrix instructions, the two functions of csrc/mma.cuh,
-// written from the PTX ISA's tables (not from any kernel). A lane's
-// 32-bit register holds two b16 values, the lower-indexed one in its low
-// half. lane = 4 g + t.
+// ---- the warp vote, shared addresses and barrier waits of K2
+
+inline int __all_sync(unsigned m, bool pred) { return __ballot_sync(m, !pred) == 0; }
+
+// a shared address is the offset into the block's dynamic shared memory
+inline unsigned __cvta_generic_to_shared(const void* p) {
+  return static_cast<unsigned>(static_cast<const unsigned char*>(p) - emu.smem);
+}
+
+// a thread waiting on a barrier switches; the launcher gives up a block
+// whose waiting threads switch kSpinLimit times (a barrier that never
+// completes) and the blocks after it
+constexpr int64_t kSpinLimit = 20000000;
+inline void emu_spin() {
+  ++emu.spins;
+  emu_switch();
+}
+
+// ---- mbarriers and bulk copies (the functions of csrc/cpasync.cuh): a
+// phase completes once its arrivals are in and the bytes announced for it
+// have landed; a bulk copy lands when every live thread of a warp waits on
+// its barrier (so that a warp that reads a stage before its wait reads it
+// stale, whichever lane comes first).
+
+inline unsigned smem_addr(const void* p) { return __cvta_generic_to_shared(p); }
+
+inline Emu::Barrier& emu_bar(const void* bar) {
+  auto it = emu.bars.find(bar);
+  if (it == emu.bars.end()) {
+    fprintf(stderr, "emulation: an mbarrier used before its init\n");
+    abort();
+  }
+  return it->second;
+}
+
+inline void emu_bar_complete(Emu::Barrier& b, bool land) {
+  if (b.pending > 0) return;
+  if (land) {
+    for (const Emu::Copy& c : b.copies) {
+      memcpy(c.dst, c.src, c.bytes);
+      b.tx -= c.bytes;
+    }
+    b.copies.clear();
+    for (const Emu::Copy& c : b.async_copies) {
+      memcpy(c.dst, c.src, c.bytes);
+      memset(static_cast<char*>(c.dst) + c.bytes, 0, 16 - c.bytes);
+    }
+    b.async_copies.clear();
+  }
+  if (b.tx == 0 && b.copies.empty() && b.async_copies.empty()) {
+    ++b.phases;
+    b.pending = b.count;
+    b.completed_round = emu.round;
+  }
+}
+
+inline void mbar_init(uint64_t* bar, int count) {
+  Emu::Barrier b;
+  b.count = b.pending = count;
+  emu.bars[bar] = b;
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint64_t* bar) {
+  Emu::Barrier& b = emu_bar(bar);
+  --b.pending;
+  emu_bar_complete(b, false);
+}
+inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  Emu::Barrier& b = emu_bar(bar);
+  b.tx += bytes;
+  --b.pending;
+  emu_bar_complete(b, false);
+}
+// the phase of parity `parity` has completed once the phases completed
+// so far are of the other parity; its waiters leave in a round after the
+// one it completed in, all lanes of a warp together. A thread's successive waits on one
+// barrier must alternate parity: the wait tells a phase only by its
+// parity, so one that repeats its last is for a phase two ahead, which
+// can pass at once (counted as a divergence).
+inline void mbar_wait(uint64_t* bar, int parity) {
+  auto last = emu_bar(bar).last_parity.find(emu.current);
+  if (last != emu_bar(bar).last_parity.end() && last->second == parity) {
+    fprintf(stderr, "emulation: thread %d waits on an mbarrier for parity %d twice in a row\n",
+            emu.current, parity);
+    ++emu_divergences;
+  }
+  emu_bar(bar).last_parity[emu.current] = parity;
+  emu_bar(bar).waiting.insert(emu.current);
+  const int first = emu.current & ~31;
+  for (;;) {
+    Emu::Barrier& b = emu_bar(bar);
+    bool warp_waits = true;
+    for (int t = first; t < first + 32 && t < emu.threads; ++t)
+      warp_waits = warp_waits && (emu.ended[t] || b.waiting.count(t));
+    emu_bar_complete(b, warp_waits);
+    if (static_cast<int>(b.phases & 1) != parity && b.completed_round < emu.round) {
+      b.waiting.erase(emu.current);
+      return;
+    }
+    emu_spin();
+  }
+}
+// every cp.async this thread issued and has not awaited lands with the
+// barrier's phase; then one arrival
+inline void cp_async_arrive(uint64_t* bar) {
+  Emu::Barrier& b = emu_bar(bar);
+  const int t = emu.current;
+  for (auto& group : emu.committed[t])
+    b.async_copies.insert(b.async_copies.end(), group.begin(), group.end());
+  emu.committed[t].clear();
+  b.async_copies.insert(b.async_copies.end(), emu.open[t].begin(), emu.open[t].end());
+  emu.open[t].clear();
+  --b.pending;
+  emu_bar_complete(b, false);
+}
+inline void bulk_copy(void* smem, const void* gmem, unsigned bytes, uint64_t* bar) {
+  if (bytes % 16 || reinterpret_cast<uintptr_t>(smem) % 16 ||
+      reinterpret_cast<uintptr_t>(gmem) % 16) {
+    fprintf(stderr, "emulation: a bulk copy of %u bytes not 16-byte aligned\n", bytes);
+    abort();
+  }
+  emu_bar(bar).copies.push_back({smem, gmem, static_cast<int>(bytes)});
+}
+
+// ---- wgmma (the functions of csrc/wgmma.cuh), written from the PTX
+// ISA's tables (not from any kernel): wgmma.mma_async m64n64k16, bf16
+// inputs, f32 accumulators, A from registers, B by descriptor. A
+// warpgroup is 128 threads, the first a multiple of 128; lane = 4 g + t;
+// warp w of the warpgroup holds rows 16 w .. 16 w + 15 of A and D:
+//   A element i (i = 0..7, register i/2, half i%2, the lower k in the low
+//     half) sits at row 16 w + g + 8 ((i / 2) & 1), column (k)
+//     2 t + (i & 1) + 8 (i / 4);
+//   D element 4 j + i sits at row 16 w + g + 8 (i / 2), column (n)
+//     8 j + 2 t + (i & 1);
+//   B element (n, k), k = 0..15, n = 0..63, at the shared address
+//     `emu_b_addr` gives.
+// The products of bf16 values are exact; each output is summed in double
+// and rounded to f32 once (the card's adder tree may round differently,
+// which integer-valued test data cannot show). A product is computed only
+// at the `wgmma_wait` that covers its group, with the accumulator's value
+// at that time, as the card leaves it undefined before.
 
 inline uint16_t emu_b16(uint32_t word, int half) {
   return static_cast<uint16_t>(half ? word >> 16 : word & 0xffffu);
 }
 
-// ldmatrix.sync.aligned.m8n8.x4.shared.b16: lanes 8i..8i+7 give the
-// addresses of rows 0..7 of matrix i; each lane then receives, in
-// register i, row g of matrix i, elements 2t and 2t+1.
-inline void ldmatrix_x4(uint32_t r[4], const void* row) {
-  const int self = emu.current;
-  const int first = self & ~31;
-  const int g = (self & 31) >> 2, t = self & 3;
-  emu.rows[self] = row;
-  emu_switch();
-  for (int i = 0; i < 4; ++i) {
-    const unsigned char* src = static_cast<const unsigned char*>(emu.rows[first + 8 * i + g]);
-    memcpy(&r[i], src + 4 * t, 4);
+// The matrix descriptor (PTX ISA, "Matrix Descriptor Format"): start
+// address >> 4 in bits 0-13, leading byte offset >> 4 in 16-29, stride
+// byte offset >> 4 in 32-45, base offset in 49-51, swizzle mode in 62-63.
+// B is K-major (each n's k values consecutive) in the canonical layouts:
+// no swizzle (mode 0), core matrices of 8 rows (n) x 16 bytes (8 k), the
+// two along k LBO apart, consecutive 8-n groups SBO apart; 128-byte
+// swizzle (mode 1), rows of 128 bytes, 8-n groups SBO apart, LBO unused,
+// the 16-byte chunk (address bits 4-6) XORed with the row within the
+// 1024-byte atom (bits 7-9).
+inline unsigned emu_b_addr(uint64_t desc, int n, int k) {
+  const unsigned start = static_cast<unsigned>(desc & 0x3FFF) << 4;
+  const unsigned lbo = static_cast<unsigned>((desc >> 16) & 0x3FFF) << 4;
+  const unsigned sbo = static_cast<unsigned>((desc >> 32) & 0x3FFF) << 4;
+  const unsigned base_offset = static_cast<unsigned>((desc >> 49) & 7);
+  const unsigned mode = static_cast<unsigned>(desc >> 62);
+  if (base_offset == 0 && mode == 0)
+    return start + (n / 8) * sbo + (k / 8) * lbo + (n % 8) * 16 + (k % 8) * 2;
+  if (base_offset == 0 && mode == 1) {
+    const unsigned a = start + (n / 8) * sbo + (n % 8) * 128 + k * 2;
+    return a ^ (((a >> 7) & 7) << 4);
   }
-  emu_switch();
+  fprintf(stderr, "emulation: descriptor mode %u, base offset %u not emulated\n", mode,
+          base_offset);
+  abort();
 }
 
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d = a * b + c:
-//   A element i (i = 0..7, register i/2, half i%2) sits at
-//     row g for i in {0, 1, 4, 5}, else g + 8; column 2t + (i & 1) + (i >= 4 ? 8 : 0);
-//   B element i (i = 0..3, register i/2, half i%2) sits at
-//     row (k) 2t + (i & 1) + (i >= 2 ? 8 : 0), column (n) g;
-//   C / D element i (i = 0..3) sits at row g + (i >= 2 ? 8 : 0),
-//     column 2t + (i & 1).
-// The products of bf16 values are exact; each output is summed in double
-// and rounded to f32 once (the card's adder tree may round differently,
-// which integer-valued test data cannot show).
-inline void mma_bf16_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  const int self = emu.current;
-  const int first = self & ~31;
-  uint32_t* mine = &emu.frags[static_cast<size_t>(self) * kFragWords];
-  memcpy(mine, a, 16);
-  memcpy(mine + 4, b, 8);
-  emu_switch();
-  float A[16][16], B[16][8];
-  for (int lane = 0; lane < 32; ++lane) {
-    const uint32_t* f = &emu.frags[static_cast<size_t>(first + lane) * kFragWords];
-    const int g = lane >> 2, t = lane & 3;
-    for (int i = 0; i < 8; ++i) {
-      const int row = (i < 2 || (i >= 4 && i < 6)) ? g : g + 8;
-      const int col = 2 * t + (i & 1) + (i >= 4 ? 8 : 0);
-      A[row][col] = __bfloat162float({emu_b16(f[i / 2], i & 1)});
+inline void wgmma_fence() {}
+inline void fence_operand(float&) {}
+inline void fence_proxy_async() {}
+template <int N>
+inline void setmaxnreg_inc() {}
+template <int N>
+inline void setmaxnreg_dec() {}
+
+inline void emu_wgmma(float d[32], const uint32_t a[4], uint64_t desc, int scale_d) {
+  emu.wg_open[emu.current].push_back({d, {a[0], a[1], a[2], a[3]}, desc, scale_d});
+}
+inline void wgmma_m64n64k16(float d[32], const uint32_t a[4], uint64_t desc) {
+  emu_wgmma(d, a, desc, 1);
+}
+inline void wgmma_m64n64k16_zero(float d[32], const uint32_t a[4], uint64_t desc) {
+  emu_wgmma(d, a, desc, 0);
+}
+inline void wgmma_commit() {
+  const int t = emu.current;
+  emu.wg_committed[t].push_back(std::move(emu.wg_open[t]));
+  emu.wg_open[t].clear();
+}
+template <int N>
+inline void wgmma_wait() {
+  const int self = emu.current, first = self & ~127;
+  const int w = (self & 127) >> 5, g = (self & 31) >> 2, t = self & 3;
+  emu_switch();  // every thread of the warpgroup has issued its products
+  auto& mine = emu.wg_committed[self];
+  const int land = static_cast<int>(mine.size()) - N;
+  for (int gi = 0; gi < land; ++gi)
+    for (size_t oi = 0; oi < mine[gi].size(); ++oi) {
+      const Emu::Product& op = mine[gi][oi];
+      float A[2][16];  // rows g and g + 8 of this warp
+      for (int tt = 0; tt < 4; ++tt) {
+        const auto& theirs = emu.wg_committed[first + 32 * w + 4 * g + tt];
+        if (static_cast<int>(theirs.size()) <= gi || theirs[gi].size() != mine[gi].size()) {
+          fprintf(stderr, "emulation: a warpgroup's threads issued other products\n");
+          abort();
+        }
+        const Emu::Product& src = theirs[gi][oi];
+        for (int i = 0; i < 8; ++i)
+          A[(i / 2) & 1][2 * tt + (i & 1) + 8 * (i / 4)] =
+              __bfloat162float({emu_b16(src.a[i / 2], i & 1)});
+      }
+      for (int j = 0; j < 8; ++j)
+        for (int i = 0; i < 4; ++i) {
+          const int n = 8 * j + 2 * t + (i & 1);
+          double s = op.scale_d ? op.d[4 * j + i] : 0.0;
+          for (int k = 0; k < 16; ++k) {
+            uint16_t bits;
+            memcpy(&bits, emu.smem + emu_b_addr(op.desc, n, k), 2);
+            s += static_cast<double>(A[i / 2][k]) * __bfloat162float({bits});
+          }
+          op.d[4 * j + i] = static_cast<float>(s);
+        }
     }
-    for (int i = 0; i < 4; ++i) {
-      const int k = 2 * t + (i & 1) + (i >= 2 ? 8 : 0);
-      B[k][g] = __bfloat162float({emu_b16(f[4 + i / 2], i & 1)});
-    }
+  emu_switch();  // every thread of the warpgroup has read the others' A
+  for (int gi = 0; gi < land; ++gi) mine.pop_front();
+}
+
+// bar.sync id, 128: the 128 threads of one warpgroup
+inline void warpgroup_sync(int id) {
+  const int64_t gen = emu.named_gen[id];
+  if (++emu.named_count[id] == 128) {
+    emu.named_count[id] = 0;
+    ++emu.named_gen[id];
   }
-  const int g = (self & 31) >> 2, t = self & 3;
-  for (int i = 0; i < 4; ++i) {
-    const int row = g + (i >= 2 ? 8 : 0), col = 2 * t + (i & 1);
-    double s = c[i];
-    for (int k = 0; k < 16; ++k) s += static_cast<double>(A[row][k]) * B[k][col];
-    c[i] = static_cast<float>(s);
-  }
-  emu_switch();
+  do emu_spin();
+  while (emu.named_gen[id] == gen);
+}
+
+// min.NaN.f32
+inline float min_nan(float a, float b) {
+  if (isnan(a) || isnan(b)) return __builtin_nanf("");
+  return a < b ? a : b;
 }
 
 static void emu_fiber_main() {
@@ -355,8 +596,6 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
   emu.threads = block;
   emu.fibers.resize(block);
   emu.slots.assign(block + 32, 0);
-  emu.frags.assign((block + 32) * kFragWords, 0);
-  emu.rows.assign(block + 32, nullptr);
   while (static_cast<int>(emu.stacks.size()) < block)
     emu.stacks.push_back(static_cast<char*>(malloc(stack_bytes)));
   const size_t smem_bytes = (smem + 127) / 128 * 128 + 128;
@@ -371,6 +610,12 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
     emu.at_barrier.assign(block, 0);
     emu.open.assign(block, {});
     emu.committed.assign(block, {});
+    emu.wg_open.assign(block, {});
+    emu.wg_committed.assign(block, {});
+    emu.bars.clear();
+    for (int i = 0; i < 16; ++i) emu.named_count[i] = 0;
+    emu.spins = 0;
+    std::vector<char> warp_ended((block + 31) / 32, 0);
     for (int t = 0; t < block; ++t) {
       getcontext(&emu.fibers[t]);
       emu.fibers[t].uc_stack.ss_sp = emu.stacks[t];
@@ -379,6 +624,7 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
       makecontext(&emu.fibers[t], emu_fiber_main, 0);
     }
     for (;;) {
+      ++emu.round;
       int waiting = 0, ended = 0, barred = 0;
       for (int t = 0; t < block; ++t) {
         if (emu.ended[t]) continue;
@@ -387,19 +633,29 @@ inline void emu_launch(K kernel, int grid, int block, size_t smem, A... args) {
         swapcontext(&emu.scheduler, &emu.fibers[t]);
         if (emu.ended[t]) {
           ++ended;
+          warp_ended[t / 32] = 1;
         } else {
           ++waiting;
           barred += emu.at_barrier[t];
         }
       }
-      if (waiting && ended) {
-        fprintf(stderr, "emulation: %d threads wait at a barrier that %d "
-                        "threads never reach\n", waiting, ended);
+      bool diverged = waiting && ended && barred;
+      for (int t = 0; t < block && waiting && ended; ++t)
+        diverged = diverged || (!emu.ended[t] && warp_ended[t / 32]);
+      if (diverged) {
+        fprintf(stderr, "emulation: %d threads wait at a barrier or warp exchange "
+                        "that %d threads never reach\n", waiting, ended);
         ++emu_divergences;
         break;
       }
       if (!waiting) break;
       if (barred == waiting) emu.at_barrier.assign(block, 0);
+      if (emu.spins > kSpinLimit) {
+        fprintf(stderr, "emulation: block %d waits on a barrier that never completes\n", b);
+        ++emu_divergences;
+        b = grid;
+        break;
+      }
     }
   }
   free(emu.smem);

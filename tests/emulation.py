@@ -3,8 +3,9 @@
 The sources are taken as they are, apart from three textual changes: the
 `<<<...>>>` launches become calls of `emu_launch`, the dynamic
 shared-memory declarations become pointers to the emulated block's
-shared memory, and `csrc/mma.cuh` (the PTX of `ldmatrix` and `mma.sync`)
-and `csrc/cpasync.cuh` (the PTX of `cp.async`) are replaced by the
+shared memory, and `csrc/wgmma.cuh` (the PTX of `wgmma` and the other
+warpgroup instructions of K2) and `csrc/cpasync.cuh` (the PTX of
+`cp.async`, the bulk copy and the mbarriers) are replaced by the
 emulation's stand-ins for their functions.
 """
 from __future__ import annotations
@@ -20,28 +21,46 @@ from vss_tpu_torch import csrc
 TESTS = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.dirname(os.path.abspath(csrc.__file__))
 
-_MMA_STUB = """#pragma once
-// the emulation's ldmatrix_x4 and mma_bf16_16816 (tests/cuda_emulation.h)
+_WGMMA_STUB = """#pragma once
+// the emulation's wgmma and warpgroup stand-ins (tests/cuda_emulation.h)
 #include "cuda_emulation.h"
 namespace vss {
-using ::ldmatrix_x4;
-using ::mma_bf16_16816;
+using ::fence_operand;
+using ::fence_proxy_async;
+using ::min_nan;
+using ::setmaxnreg_dec;
+using ::setmaxnreg_inc;
+using ::warpgroup_sync;
+using ::wgmma_commit;
+using ::wgmma_fence;
+using ::wgmma_m64n64k16;
+using ::wgmma_m64n64k16_zero;
+using ::wgmma_wait;
 }  // namespace vss
 """
 
 
 _CPASYNC_STUB = """#pragma once
-// the emulation's cp.async stand-ins (tests/cuda_emulation.h)
+// the emulation's cp.async, bulk copy and mbarrier stand-ins
+// (tests/cuda_emulation.h)
 #include "cuda_emulation.h"
 namespace vss {
+using ::bulk_copy;
 using ::cp_async16;
+using ::cp_async_arrive;
 using ::cp_async_commit;
 using ::cp_async_wait;
+using ::mbar_arrive;
+using ::mbar_expect_tx;
+using ::mbar_init;
+using ::mbar_init_fence;
+using ::mbar_wait;
+using ::smem_addr;
 }  // namespace vss
 """
 
 # headers of csrc/ replaced by the emulation's stand-ins for their PTX
-_STUBS = {"mma.cuh": _MMA_STUB, "cpasync.cuh": _CPASYNC_STUB}
+_STUBS = {"wgmma.cuh": _WGMMA_STUB, "cpasync.cuh": _CPASYNC_STUB}
 
 
 def for_gpp(text: str) -> str:

@@ -45,7 +45,7 @@ SOURCES = {
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }
-_HEADERS = ("common.cuh", "gather.cuh", "mma.cuh", "selectk.cuh", "cpasync.cuh")
+_HEADERS = ("common.cuh", "gather.cuh", "wgmma.cuh", "selectk.cuh", "cpasync.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

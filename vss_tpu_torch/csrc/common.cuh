@@ -20,8 +20,10 @@
 // bytes. The SIMT loop runs on the f32 pipes (67 TFLOP/s peak), far under
 // the tensor cores; it is kept because it is exact for the f32 oracle
 // (TF32 is not) and simple. K2, whose products take bf16 inputs, runs
-// them on the tensor cores instead (scan.cu, mma.cuh); `tile_origin`, the
-// tile sizes and the loaders are shared with it.
+// them on the tensor cores instead, as Hopper's warpgroup products
+// (scan.cu, wgmma.cuh: bound by the bf16 rate, 989 TFLOP/s, the tape
+// streamed through a ring of bulk copies and decoded in registers); it
+// shares only the enums and `round_bf16` with this file.
 #pragma once
 
 #include <cuda_bf16.h>
