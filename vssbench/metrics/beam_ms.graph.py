@@ -1,0 +1,15 @@
+"""Device time of the beam kernel (`csrc/beam.cu` `beam_kernel`) per
+`HNSWIndex.search` call (ms). Nothing where the search runs no such
+kernel."""
+
+NAME = "beam_kernel"
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or not t.calls("search"):
+        return None
+    ops = [op for op in t.ops_of("search", ("kernel",)) if NAME in op[0]]
+    if not ops:
+        return None
+    return sum(op[3] for op in ops) / 1e3 / t.calls("search")
