@@ -18,6 +18,12 @@ identity, stay exact. `insert` clones the graph once, updates that copy
 in place wave by wave and publishes it at its end. Whole-row gathers
 (compaction's permutation of the tapes, the pivot sample, the layout's
 cluster assignment) go through kernel K5 (`ops/gather.gather_rows`).
+
+While the torch profiler runs, `search` and `scan_search` record the
+spans `vss.search` and `vss.scan` with their phases inside
+(`utils/trace.py`): the queries' intake (the copy to the device and the
+int8 scale), then `vss.search.pivots` and the phases of `hnsw_search`,
+or those of `scan_topk`.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from vss_tpu_torch.ops.gather import gather_rows
 from vss_tpu_torch.ops.scan import scan_topk
 from vss_tpu_torch.ops.topk import bruteforce_topk
 from vss_tpu_torch.utils import next_pow2, resolve_device
+from vss_tpu_torch.utils.trace import span
 
 __all__ = ["HNSWIndex", "graph_pivots", "pivot_rows", "rescale_distances"]
 
@@ -228,6 +235,12 @@ class HNSWIndex:
         q = q.to(self.device, torch.float32)
         return q[None, :] if q.dim() == 1 else q
 
+    def _scaled_queries(self, queries) -> torch.Tensor:
+        """The queries on the index's device in the tape's units (divided
+        by the int8 scale)."""
+        q = self._queries(queries)
+        return q / self.vector_scale if self.config.storage_dtype == "int8" else q
+
     def _rowids(self, g: HNSWGraph, slots: torch.Tensor) -> torch.Tensor:
         return torch.where(slots >= 0, g.slot_to_rowid[slots.clamp(min=0).long()], -1)
 
@@ -242,21 +255,22 @@ class HNSWIndex:
     ):
         """k-NN search. Returns (dists [B, k] f32 ascending, rowids [B, k]
         int32, -1 past the end), on the index's device."""
-        q = self._queries(queries)
-        if self.config.storage_dtype == "int8":
-            q = q / self.vector_scale
-        # one graph snapshot for the whole call
-        g = self.graph
-        pivot_slots, pivot_vecs, pivot_norms = self.pivots()
-        d, slots = hnsw_search(
-            g, self.config, q, k, ef=ef, filter_mask=filter_mask,
-            expand=expand, assume_all_valid=self.deleted_count == 0,
-            pivot_slots=pivot_slots, pivot_vecs=pivot_vecs, pivot_norms=pivot_norms,
-            rerank_tape=self.rerank_tape,
-        )
-        if self.config.storage_dtype == "int8":
-            d = rescale_distances(d, self.vector_scale, self.config.metric)
-        return d, self._rowids(g, slots)
+        with span("vss.search"):
+            with span("vss.search.intake"):
+                q = self._scaled_queries(queries)
+            # one graph snapshot for the whole call
+            g = self.graph
+            with span("vss.search.pivots"):
+                pivot_slots, pivot_vecs, pivot_norms = self.pivots()
+            d, slots = hnsw_search(
+                g, self.config, q, k, ef=ef, filter_mask=filter_mask,
+                expand=expand, assume_all_valid=self.deleted_count == 0,
+                pivot_slots=pivot_slots, pivot_vecs=pivot_vecs, pivot_norms=pivot_norms,
+                rerank_tape=self.rerank_tape,
+            )
+            if self.config.storage_dtype == "int8":
+                d = rescale_distances(d, self.vector_scale, self.config.metric)
+            return d, self._rowids(g, slots)
 
     def pivots(self, min_pivots: int = 8):
         """(pivot_slots [P] i32, pivot_vecs [P, d] f32, pivot_norms [P]) for
@@ -292,21 +306,21 @@ class HNSWIndex:
         with respect to the rerank tape when one exists). Returns (dists
         [B, k] f32, rowids [B, k], -1 pad) like search(). keep = 2k: the
         wider winnow margin of the exact-scan operator."""
-        q = self._queries(queries)
-        if self.config.storage_dtype == "int8":
-            q = q / self.vector_scale
-        g = self.graph
-        allow = g.valid
-        if filter_mask is not None:
-            allow = allow & filter_mask.to(self.device)
-        d, slots = scan_topk(
-            q, g.vectors, k, self.config.metric, valid_mask=allow,
-            x_norms=self.norms(), rerank_tape=self.rerank_tape, keep=2 * k,
-            device=self.device,
-        )
-        if self.config.storage_dtype == "int8":
-            d = rescale_distances(d, self.vector_scale, self.config.metric)
-        return d, self._rowids(g, slots)
+        with span("vss.scan"):
+            with span("vss.scan.intake"):
+                q = self._scaled_queries(queries)
+            g = self.graph
+            allow = g.valid
+            if filter_mask is not None:
+                allow = allow & filter_mask.to(self.device)
+            d, slots = scan_topk(
+                q, g.vectors, k, self.config.metric, valid_mask=allow,
+                x_norms=self.norms(), rerank_tape=self.rerank_tape, keep=2 * k,
+                device=self.device,
+            )
+            if self.config.storage_dtype == "int8":
+                d = rescale_distances(d, self.vector_scale, self.config.metric)
+            return d, self._rowids(g, slots)
 
     def slot_rowid_array(self) -> np.ndarray:
         """slot -> rowid tape, host copy (filtered-search mask surface)."""

@@ -30,13 +30,13 @@ What differs from the JAX package:
     untouched);
   * the `VSS_*` environment switches are keyword arguments of
     `build_graph_exact` with the JAX package's defaults, and the debug
-    marks go to `logging`.
+    marks are the spans `vss.build.candidates`, `.refine`, `.backlinks`,
+    `.levels` and `.repair` (`utils/trace.py`), whose seconds `stats`
+    receives as `phase_s`.
 """
 from __future__ import annotations
 
 import dataclasses
-import logging
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -56,12 +56,12 @@ from vss_tpu_torch.ops.distance import Metric, _epilogue, gathered_distances
 from vss_tpu_torch.ops.gather import gather_rows
 from vss_tpu_torch.ops.topk import _sort_min_k
 from vss_tpu_torch.utils import resolve_device, round_up
+from vss_tpu_torch.utils.trace import PhaseClock
 
 __all__ = ["build_graph_exact", "exact_knn", "scan_candidates"]
 
 _INF = float("inf")
 _IMAX = 2**31 - 1
-_LOG = logging.getLogger(__name__)
 
 # gathered candidate values (f32 elements) one refine / back-link chunk may
 # hold: 2^28 is 1 GiB, small against the H100's 80 GB
@@ -432,13 +432,7 @@ def build_graph_exact(
     stats = {} if stats is None else stats
     if n == 0:
         return graph, 0
-    t_start = time.perf_counter()
-
-    def mark(label):
-        if _LOG.isEnabledFor(logging.DEBUG):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            _LOG.debug("%s: %.1f s", label, time.perf_counter() - t_start)
+    clock = PhaseClock(dev, "vss.build.")
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -493,75 +487,76 @@ def build_graph_exact(
             xvs, graph.vectors[:n], torch.ones((n,), dtype=torch.bool, device=dev),
             (xvs * xvs).sum(1), min(C0, SCAN_K_MAX), metric, progress=knn_prog)
 
-    if mode == "scan":
-        cand_d, cand_i = scan_pass()
-    elif mode in ("ivf", "hybrid"):
-        from vss_tpu_torch.index.ivf_candidates import ivf_candidates
+    with clock.phase("candidates"):
+        if mode == "scan":
+            cand_d, cand_i = scan_pass()
+        elif mode in ("ivf", "hybrid"):
+            from vss_tpu_torch.index.ivf_candidates import ivf_candidates
 
-        # the storage tape feeds the IVF pass directly: only candidate
-        # ordering survives it
-        cand_d, cand_i = ivf_candidates(
-            graph.vectors[:n] if quantized else xv, slots, C0, metric, seed=seed + 1,
-            progress=knn_prog)
-        if mode == "hybrid":
-            from vss_tpu_torch.index.nn_descent import sampled_list_recall
+            # the storage tape feeds the IVF pass directly: only candidate
+            # ordering survives it
+            cand_d, cand_i = ivf_candidates(
+                graph.vectors[:n] if quantized else xv, slots, C0, metric, seed=seed + 1,
+                progress=knn_prog)
+            if mode == "hybrid":
+                from vss_tpu_torch.index.nn_descent import sampled_list_recall
 
-            if quantized and scan_ok:
-                # the oracle over the storage tape through the scan (K2)
-                rec, _, _ = sampled_list_recall(graph.vectors[:n], cand_i, metric,
-                                                seed=seed + 2, use_scan=True)
-            else:
-                rec, _, _ = sampled_list_recall(xv_scoring(), cand_i, metric, seed=seed + 2)
-            stats["ivf_sampled_recall"] = rec
-            mark(f"ivf sampled recall@10={rec:.3f}")
-            # clustered corpora sample ~0.8 and serve well from these
-            # lists; flat ones sample ~0.05-0.3 and take the scan pass
-            stats["scan_fallback"] = rec < recall_bar
-            if rec < recall_bar:
-                cand_d, cand_i = scan_pass()
-                mark("scan fallback")
-        elif nn_descent:
-            from vss_tpu_torch.index.nn_descent import nn_descent_refine
+                if quantized and scan_ok:
+                    # the oracle over the storage tape through the scan (K2)
+                    rec, _, _ = sampled_list_recall(graph.vectors[:n], cand_i, metric,
+                                                    seed=seed + 2, use_scan=True)
+                else:
+                    rec, _, _ = sampled_list_recall(xv_scoring(), cand_i, metric,
+                                                    seed=seed + 2)
+                stats["ivf_sampled_recall"] = rec
+                # clustered corpora sample ~0.8 and serve well from these
+                # lists; flat ones sample ~0.05-0.3 and take the scan pass
+                stats["scan_fallback"] = rec < recall_bar
+                if rec < recall_bar:
+                    cand_d, cand_i = scan_pass()
+            elif nn_descent:
+                from vss_tpu_torch.index.nn_descent import nn_descent_refine
 
-            cand_d, cand_i = nn_descent_refine(
-                xv_scoring(), cand_d, cand_i, metric, max_rounds=nn_descent_rounds,
-                seed=seed + 2)
-            mark("nn-descent")
-    else:
-        cand_d, cand_i = exact_knn(xv_scoring(), slots, C0, metric, block=block, tile=tile,
-                                   progress=knn_prog)
-    mark(f"candidates ({mode})")
+                cand_d, cand_i = nn_descent_refine(
+                    xv_scoring(), cand_d, cand_i, metric, max_rounds=nn_descent_rounds,
+                    seed=seed + 2)
+        else:
+            cand_d, cand_i = exact_knn(xv_scoring(), slots, C0, metric, block=block,
+                                       tile=tile, progress=knn_prog)
     done_units[0] = n
-    tape_f32 = graph.vectors.float()
-    _refine_forward(graph.adj0, tape_f32, cand_d, cand_i, slots, config, config.m0)
-    del cand_d, cand_i
-    mark("refine")
-    chunk = backlink_chunk or _rows_per_chunk(config.m0 + _INCOMING_CAP, d)
-    _backlink_pass(graph, config, slots, slots, graph.adj0[:n].clone(), tape_f32, 0, chunk)
-    mark("backlinks")
+    with clock.phase("refine"):
+        tape_f32 = graph.vectors.float()
+        _refine_forward(graph.adj0, tape_f32, cand_d, cand_i, slots, config, config.m0)
+        del cand_d, cand_i
+    with clock.phase("backlinks"):
+        chunk = backlink_chunk or _rows_per_chunk(config.m0 + _INCOMING_CAP, d)
+        _backlink_pass(graph, config, slots, slots, graph.adj0[:n].clone(), tape_f32, 0,
+                       chunk)
     done_units[0] = int(1.5 * n)
     if progress is not None:
         progress(done_units[0], total_units)
 
     # ---- upper levels
-    urows_t = t(urows)
-    for lev in range(1, int(levels.max()) + 1):
-        member = np.nonzero(levels >= lev)[0]
-        if member.size <= 1:
-            break
-        mslots = t(member.astype(np.int32))
-        _upper_level_pass(tape_f32, mslots, urows_t[mslots.long(), lev - 1], graph.upper_adj,
-                          config, tile, block, backlink_chunk or _rows_per_chunk(2 * config.m, d))
-        mark(f"level {lev} ({member.size} nodes)")
+    with clock.phase("levels"):
+        urows_t = t(urows)
+        for lev in range(1, int(levels.max()) + 1):
+            member = np.nonzero(levels >= lev)[0]
+            if member.size <= 1:
+                break
+            mslots = t(member.astype(np.int32))
+            _upper_level_pass(tape_f32, mslots, urows_t[mslots.long(), lev - 1],
+                              graph.upper_adj, config, tile, block,
+                              backlink_chunk or _rows_per_chunk(2 * config.m, d))
 
     # ---- connectivity repair: a pure-kNN edge set can leave whole
     # clusters unreachable from the entry (see index/repair.py)
     from vss_tpu_torch.index.repair import repair_connectivity
 
     del tape_f32
-    graph, bridged = repair_connectivity(graph, config)
+    with clock.phase("repair"):
+        graph, bridged = repair_connectivity(graph, config)
     stats["bridged"] = bridged
-    mark("repair")
+    stats["phase_s"] = clock.seconds()
     if progress is not None:
         progress(total_units, total_units)
     if want_rerank:

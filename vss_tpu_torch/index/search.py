@@ -47,6 +47,9 @@ padding mask, the stable k smallest, the slot map and each seed's
 distance (kernel K1's code) in one pass over the product, no host sync.
 Its plain version, and what runs for CPU tensors, is `pivot_seeds`
 followed by K1's plain version. The rerank gather goes through K5.
+
+`hnsw_search` records its phases as the spans `vss.search.seed`, `.beam`
+and `.rerank` while the torch profiler runs (`utils/trace.py`).
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ from vss_tpu_torch.index.graph import HNSWConfig, HNSWGraph
 from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue, gathered_distances
 from vss_tpu_torch.ops.gather import _gather_distances_plain, gather_distances, gather_rows
 from vss_tpu_torch.ops.topk import SELECT_K_MAX, _select_k_splits, _select_min_k
+from vss_tpu_torch.utils.trace import span
 
 __all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "scored_pivot_seeds",
            "beam_search_base", "beam_smem_bytes"]
@@ -688,31 +692,34 @@ def hnsw_search(
     # single-pool fast path: every reachable node admissible
     dual_pool = not (assume_all_valid and filter_mask is None)
     metric = Metric.parse(config.metric)
-    q_norms = (q * q).sum(-1) if metric in (Metric.L2SQ, Metric.COSINE) else None
-    if pivot_slots is not None:
-        seeds, seed_d = scored_pivot_seeds(graph, config, q, pivot_slots, pivot_vecs, n_seeds,
-                                           q_norms, pivot_norms)
-    else:
-        seeds, seed_d = greedy_descent(graph, config, q, q_norms=q_norms)
-    res_d, res_i, _, (iters, evals) = beam_search_base(
-        graph, config, q, seeds, seed_d, ef, allow, expand, max_iters,
-        q_norms=q_norms, dual_pool=dual_pool, use_history=use_history,
-    )
-    if rerank_tape is not None:
-        # exact rescoring of the ef-wide pool against the side tape
-        rv = gather_rows(rerank_tape, res_i).float()
-        if metric == Metric.L2SQ:
-            # direct difference form: the dot-product identity loses
-            # digits to cancellation at byte magnitudes
-            diff = q[:, None, :] - rv
-            rd = (diff * diff).sum(-1)
+    with span("vss.search.seed"):
+        q_norms = (q * q).sum(-1) if metric in (Metric.L2SQ, Metric.COSINE) else None
+        if pivot_slots is not None:
+            seeds, seed_d = scored_pivot_seeds(graph, config, q, pivot_slots, pivot_vecs,
+                                               n_seeds, q_norms, pivot_norms)
         else:
-            rd = gathered_distances(q, rv, metric, None, q_norms)
-        rd = torch.where(res_i >= 0, rd, _INF)
-        res_d, res_i = _sort_by(rd, res_i)
-    empty = graph.entry < 0
-    out_d = torch.where(empty, _INF, res_d[:, :k])
-    out_i = torch.where(empty, -1, res_i[:, :k])
+            seeds, seed_d = greedy_descent(graph, config, q, q_norms=q_norms)
+    with span("vss.search.beam"):
+        res_d, res_i, _, (iters, evals) = beam_search_base(
+            graph, config, q, seeds, seed_d, ef, allow, expand, max_iters,
+            q_norms=q_norms, dual_pool=dual_pool, use_history=use_history,
+        )
+    with span("vss.search.rerank"):
+        if rerank_tape is not None:
+            # exact rescoring of the ef-wide pool against the side tape
+            rv = gather_rows(rerank_tape, res_i).float()
+            if metric == Metric.L2SQ:
+                # direct difference form: the dot-product identity loses
+                # digits to cancellation at byte magnitudes
+                diff = q[:, None, :] - rv
+                rd = (diff * diff).sum(-1)
+            else:
+                rd = gathered_distances(q, rv, metric, None, q_norms)
+            rd = torch.where(res_i >= 0, rd, _INF)
+            res_d, res_i = _sort_by(rd, res_i)
+        empty = graph.entry < 0
+        out_d = torch.where(empty, _INF, res_d[:, :k])
+        out_i = torch.where(empty, -1, res_i[:, :k])
     if with_stats:
         return out_d, out_i, {"iterations": int(iters), "distance_evals": int(evals)}
     return out_d, out_i

@@ -26,6 +26,10 @@ PyTorch, its reference on the card) over query chunks of at most
 ~_BLOCK_ELEMS gathered values. The selections of phase A are plain
 PyTorch around `select_k`. The TPU tile sizes, corpus chunking and VMEM
 budgets are not carried over.
+
+On the native route `scan_topk` records phase A, the selection and phases
+B and C as the spans `vss.scan.pass`, `.select` and `.rescore` while the
+torch profiler runs (`utils/trace.py`).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from vss_tpu_torch.ops.topk import (
     bruteforce_topk,
 )
 from vss_tpu_torch.utils import cdiv, pad_dim, pad_to, resolve_device
+from vss_tpu_torch.utils.trace import span
 
 __all__ = ["scan_topk", "rescore_topk", "native_scan_supported", "SCAN_K_MAX"]
 
@@ -332,22 +337,25 @@ def scan_topk(
         base = rerank_tape if rerank_tape is not None else tape
         return bruteforce_topk(q, base.float(), k, metric, valid_mask=valid_mask,
                                device=dev)
-    if valid_mask is None:
-        valid_mask = torch.ones((nx,), dtype=torch.bool, device=dev)
-    valid_mask = valid_mask.to(dev, torch.bool)
-    if x_norms is None:
-        xf = tape.float()
-        x_norms = (xf * xf).sum(-1)
-    x_norms = x_norms.to(dev, torch.float32)
-    if keep is None:
-        # margin over the exact-arithmetic bound for bf16 proxy noise near
-        # the selection boundary; k//8 grows it with k
-        keep = k + max(2, k // 8)
-    keep = min(keep, _GROUP * cdiv(nx, _SEG))
-    subs = native_segmin(q.to(torch.bfloat16), tape, x_norms, valid_mask, metric)
-    segs = _select_subsegments(subs, keep)
-    has_rr = rerank_tape is not None
-    m = min(max(2 * k, k + 6), segs.shape[1] * _SUBSEG) if has_rr else k
-    # phases B and C: on CUDA one rescore_topk launch for every query, no
-    # gathered block; on the CPU query chunks of ~_BLOCK_ELEMS gathered values
-    return rescore_topk(q, segs, tape, x_norms, valid_mask, rerank_tape, m, k, metric)
+    with span("vss.scan.pass"):
+        if valid_mask is None:
+            valid_mask = torch.ones((nx,), dtype=torch.bool, device=dev)
+        valid_mask = valid_mask.to(dev, torch.bool)
+        if x_norms is None:
+            xf = tape.float()
+            x_norms = (xf * xf).sum(-1)
+        x_norms = x_norms.to(dev, torch.float32)
+        if keep is None:
+            # margin over the exact-arithmetic bound for bf16 proxy noise near
+            # the selection boundary; k//8 grows it with k
+            keep = k + max(2, k // 8)
+        keep = min(keep, _GROUP * cdiv(nx, _SEG))
+        subs = native_segmin(q.to(torch.bfloat16), tape, x_norms, valid_mask, metric)
+    with span("vss.scan.select"):
+        segs = _select_subsegments(subs, keep)
+    with span("vss.scan.rescore"):
+        has_rr = rerank_tape is not None
+        m = min(max(2 * k, k + 6), segs.shape[1] * _SUBSEG) if has_rr else k
+        # phases B and C: on CUDA one rescore_topk launch for every query, no
+        # gathered block; on the CPU query chunks of ~_BLOCK_ELEMS gathered values
+        return rescore_topk(q, segs, tape, x_norms, valid_mask, rerank_tape, m, k, metric)

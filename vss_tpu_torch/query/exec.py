@@ -41,7 +41,7 @@ from vss_tpu_torch.query.ir import (
 )
 from vss_tpu_torch.query.table import Database, host
 
-__all__ = ["run_plan", "explain_analyze"]
+__all__ = ["run_plan", "explain_analyze", "analyze_plan"]
 
 
 def _is_null(vals: np.ndarray) -> np.ndarray:
@@ -205,23 +205,37 @@ def _search_index(
     return host(d), host(rows)
 
 
-def explain_analyze(db: Database, node: PlanNode) -> tuple[str, dict]:
-    """Run the plan with per-operator wall time + row counts (the EXPLAIN
-    ANALYZE surface the reference gets from DuckDB). Returns (report text,
-    result chunk)."""
+def analyze_plan(db: Database, node: PlanNode) -> tuple[dict, dict]:
+    """Run the plan timing each operator: ({id(node): (seconds, rows)},
+    result chunk). An operator's seconds include its children's. On a
+    CUDA database the device is synchronised before each clock reading,
+    so an operator's time holds its device work and not only its
+    enqueue."""
     import time
+
+    def now() -> float:
+        if db.device.type == "cuda":
+            torch.cuda.synchronize(db.device)
+        return time.perf_counter()
 
     timings: dict[int, tuple[float, int]] = {}
 
     def timed_run(n: PlanNode) -> dict[str, np.ndarray]:
-        t0 = time.perf_counter()
+        t0 = now()
         out = _run_plan_inner(db, n, timed_run)
-        dt = time.perf_counter() - t0
+        dt = now() - t0
         rows = len(next(iter(out.values()))) if out else 0
         timings[id(n)] = (dt, rows)
         return out
 
-    result = timed_run(node)
+    return timings, timed_run(node)
+
+
+def explain_analyze(db: Database, node: PlanNode) -> tuple[str, dict]:
+    """Run the plan with per-operator wall time + row counts (the EXPLAIN
+    ANALYZE surface the reference gets from DuckDB; `analyze_plan`).
+    Returns (report text, result chunk)."""
+    timings, result = analyze_plan(db, node)
 
     def fmt(n: PlanNode, depth: int) -> list[str]:
         dt, rows = timings.get(id(n), (0.0, 0))
