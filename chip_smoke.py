@@ -8,6 +8,7 @@
     python3 chip_smoke.py --pairwise-topk-only  # the pairwise_topk kernel alone
     python3 chip_smoke.py --pivot-seeds-only  # the pivot_seeds kernel alone
     python3 chip_smoke.py --pivot-product-only  # the pivot_product kernel alone
+    python3 chip_smoke.py --witnesses-only  # the repeated-row witnesses alone
     python3 chip_smoke.py --rescore-only   # the rescore_topk kernel alone
     python3 chip_smoke.py --k2-only        # K2 (native_segmin) alone
     python3 chip_smoke.py --k2-only --k2-parent DIR  # and DIR's K2 in turns
@@ -197,6 +198,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import hashlib
 import inspect
 import itertools
@@ -1404,10 +1406,11 @@ def descent_edge_cases(name: str, g, cfg, q) -> None:
     descent_variant(f"{name}, an empty batch", g, cfg, q[:0], 0)
 
 
-def one_launch_no_sync(fn, kname: str) -> None:
+def one_launch_no_sync(fn, kname: str, n: int = 1) -> None:
     """`fn`, a public call on CUDA tensors, is one launch of kernel `kname`
-    and no host sync: under sync debug mode "error" PyTorch raises on a
-    synchronizing call."""
+    (n launches of it, where its entry launches once a part) and no host
+    sync: under sync debug mode "error" PyTorch raises on a synchronizing
+    call."""
     from vss_tpu_torch import csrc
 
     before = {k: v.launches for k, v in csrc.KERNELS.items()}
@@ -1417,8 +1420,8 @@ def one_launch_no_sync(fn, kname: str) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     ran = {k: v.launches - before[k] for k, v in csrc.KERNELS.items() if v.launches != before[k]}
-    if ran != {kname: 1}:
-        fail(f"{kname} on CUDA tensors launched {ran}, not one {kname}")
+    if ran != {kname: n}:
+        fail(f"{kname} on CUDA tensors launched {ran}, not {n} {kname}")
 
 
 def check_descent(dev, idx, q_scaled, wave_vecs, rng, read_ns: float, out_dir: str) -> dict:
@@ -2338,7 +2341,7 @@ def gemm_product():
     from vss_tpu_torch.index import search as sr
 
     real = sr.pivot_product_takes
-    sr.pivot_product_takes = lambda dtype, d: False
+    sr.pivot_product_takes = lambda dtype: False
     try:
         yield
     finally:
@@ -2629,8 +2632,12 @@ def check_pivot_seeds(dev, idx, q_scaled, wave_scaled, out_dir) -> dict:
 # the product's shapes on the main paths (label, queries, pivots, width):
 # the gist cell's batch over its 1M index's pivots, sift's, and the insert
 # wave's 1,024 rows at the gist width (k = 1)
-PIVOT_PRODUCT_SHAPES = [("gist serving", 512, 65_536, 960), ("sift serving", 512, 65_536, 128),
-                        ("insert wave", 1024, 65_536, 960)]
+# (label, queries, pivots, width, seeds a query): the main paths' shapes
+PIVOT_PRODUCT_SHAPES = [("gist serving", 512, 65_536, 960, 4),
+                        ("sift serving", 512, 65_536, 128, 4),
+                        ("insert wave", 1024, 65_536, 960, 1),
+                        ("openai serving", 512, 65_536, 1536, 4),
+                        ("sift one query", 1, 65_536, 128, 4)]
 # rows of the synthetic tape the pivots are drawn from
 PIVOT_TAPE_ROWS = 1_000_000
 
@@ -2655,6 +2662,102 @@ def pivot_world(seed, B, P, d, dtype, dev, n=None, pad=0.05):
     rows = tape[slots.clamp(min=0).long()].contiguous()
     q = rows[pick].float() + torch.randn((B, d), generator=gen, device=dev) * 8
     return rows, slots, q.contiguous(), tape
+
+
+def product_launches(d: int, dtype) -> int:
+    """The launches of one `pivot_product` call over rows of d values of
+    `dtype` on this card: one a column group of the kernel's plan."""
+    from vss_tpu_torch.index import search as sr
+
+    fn = sr._PIVOTS.function("vss_pivot_product_plan", ctypes.c_int,
+                             [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+    smem_max = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                       232_448)
+    out = [ctypes.c_int() for _ in range(4)]
+    if fn(512, 65_536, d, torch.empty((), dtype=dtype).element_size(), smem_max,
+          *(ctypes.byref(v) for v in out)) <= 0:
+        fail(f"pivot_product: the plan refuses rows of {d} {dtype} values")
+    return -(-d // out[3].value)
+
+
+def rows_listing_an_id_twice(ids: torch.Tensor) -> int:
+    """Rows of `ids` (adjacency rows or answers) that hold an id >= 0 twice."""
+    s = torch.sort(ids.to(torch.int64), 1).values
+    return int(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any(1).sum())
+
+
+# the benchmark's seeds at which the port answered a row twice while the
+# connectivity repair wrote a bridge into a row that listed its other end
+# already: `sift1m`, query 8,877 (row 155,022 at ranks 2 and 3), and the
+# left-out cell `sift1m.churn` (two answers by recall step 192)
+WITNESS_SEED = 2_147_483_653
+WITNESS_QUERY = 8877
+CHURN_WITNESS_SEED = 2_147_610_013
+
+
+def check_witnesses(dev) -> dict:
+    """The two witnesses through `vssbench/` on its own data: the `sift1m`
+    index of WITNESS_SEED (no adjacency row lists an id twice; query
+    WITNESS_QUERY alone, in its batch of 512, every batch of the pool and
+    queries 8,800-8,899 alone answer no row twice), and 3 s of the
+    `sift1m.churn` cell (from `vssbench/left_out.json`) at
+    CHURN_WITNESS_SEED, which must read `correct` with `bad_answers` 0."""
+    from vssbench import cell
+    from vssbench.data import Corpus
+    from vssbench.system import PortSystem
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = cell.load_json(root, "vssbench/configs/sift1m.json")
+    corpus = Corpus(cfg["corpus"], WITNESS_SEED, dev)
+    base = corpus.base()
+    pool = corpus.queries(int(cfg["queries"]["pool"])).cpu().numpy()
+    system = PortSystem(cfg["index"], cfg["corpus"]["dims"], dev)
+    system.prepare()
+    system.build(base)
+    del base
+    g = system.index.graph
+    graph_rows = rows_listing_an_id_twice(g.adj0) + rows_listing_an_id_twice(g.upper_adj)
+    first = WITNESS_QUERY // 512 * 512
+    batch = system.search(pool[first:first + 512], 10, 64)[1][WITNESS_QUERY - first]
+    alone = system.search(pool[WITNESS_QUERY:WITNESS_QUERY + 1], 10, 64)[1][0]
+    in_batches = sum(rows_listing_an_id_twice(torch.as_tensor(system.search(pool[s:s + 512], 10,
+                                                                            64)[1]))
+                     for s in range(0, pool.shape[0], 512))
+    single = sum(rows_listing_an_id_twice(torch.as_tensor(system.search(pool[i:i + 1], 10,
+                                                                        64)[1]))
+                 for i in range(8800, 8900))
+    out = dict(graph_rows=graph_rows, bridged=system.index.build_stats.get("bridged"),
+               query=WITNESS_QUERY, in_batch=np.asarray(batch).tolist(),
+               alone=np.asarray(alone).tolist(), pool_in_batches=in_batches,
+               single_8800_8899=single)
+    log(f"witness sift1m seed {WITNESS_SEED}: {json.dumps(out)}")
+    if graph_rows or in_batches or single or len(set(out["alone"])) != len(out["alone"]) \
+            or len(set(out["in_batch"])) != len(out["in_batch"]):
+        fail(f"witness sift1m seed {WITNESS_SEED}: a row listed or answered twice")
+    del system
+    torch.cuda.empty_cache()
+
+    real = cell.load_benchmark
+
+    def with_left_out(root=root):
+        bench = real(root)
+        left = cell.load_json(root, "vssbench/left_out.json")
+        for key in ("workloads", "end_to_end", "per_layer"):
+            bench[key] += left[key]
+        return bench
+
+    cell.load_benchmark = with_left_out
+    try:
+        r = cell.run_cell("sift1m.churn", CHURN_WITNESS_SEED, 3.0, False, str(dev),
+                          time.perf_counter(), root=root)
+    finally:
+        cell.load_benchmark = real
+    churn = {k: v["value"] for k, v in r["check"].items()}
+    log(f"witness sift1m.churn seed {CHURN_WITNESS_SEED}: correct {r['correct']}, {churn}")
+    if not r["correct"] or churn.get("bad_answers"):
+        fail(f"witness sift1m.churn seed {CHURN_WITNESS_SEED}: not correct ({churn})")
+    out["churn"] = dict(correct=r["correct"], **churn)
+    return out
 
 
 def pivot_rows_of(rows, slots) -> torch.Tensor:
@@ -2698,7 +2801,7 @@ def pivot_product_special(dev) -> None:
     it drops."""
     from vss_tpu_torch.index import search as sr
 
-    for dtype, d in ((torch.int8, 960), (torch.bfloat16, 40)):
+    for dtype, d in ((torch.int8, 960), (torch.bfloat16, 40), (torch.int8, 1536)):
         rows, slots, q, _ = pivot_world(11, 6, 300, d, dtype, dev)
         q[1, 3] = float("nan")
         q[2, 5] = float("inf")
@@ -2712,26 +2815,29 @@ def pivot_product_special(dev) -> None:
         fine = torch.tensor([0, 4, 5], device=dev)
         product_verdict(f"{dtype} d={d} beside NaN and inf queries", got[fine], q[fine], rows,
                         slots)
-    d = 200
-    eye = torch.zeros((d + 3, d), dtype=torch.int8, device=dev)
-    eye[torch.arange(d), torch.arange(d)] = 1
-    slots = torch.cat([torch.randperm(d, device=dev), torch.full((56,), -1, device=dev)]).to(
-        torch.int32)
-    eye = eye[slots.clamp(min=0).long()].contiguous()
-    gen = torch.Generator(device=dev).manual_seed(12)
-    normal = torch.randn((4, d), generator=gen, device=dev)
-    bits = torch.randint(1, 1 << 23, (4, d), generator=gen, device=dev, dtype=torch.int32)
-    subnormal = (bits | (torch.randint(0, 2, (4, d), generator=gen, device=dev,
-                                       dtype=torch.int32) << 31)).view(torch.float32)
-    q = torch.cat([normal, normal * 3e37, subnormal]).contiguous()
-    q[0, :9] = 0.0
-    q[1, :9] = -0.0
-    got = sr.pivot_product(q, eye, slots)
-    want = torch.where((slots >= 0)[None, :], q[:, slots.clamp(min=0).long()], 0.0)
-    nz = want != 0
-    if not (torch.equal(got[nz].view(torch.int32), want[nz].view(torch.int32))
-            and bool((got[~nz] == 0).all())):
-        fail("pivot_product: one-hot pivots do not give back the queries bit for bit")
+    # one-hot rows in one column group (200) and across two (1,536) and
+    # five (4,400)
+    for d in (1536, 4400, 200):
+        eye = torch.zeros((d + 3, d), dtype=torch.int8, device=dev)
+        eye[torch.arange(d), torch.arange(d)] = 1
+        slots = torch.cat([torch.randperm(d, device=dev), torch.full((56,), -1, device=dev)]).to(
+            torch.int32)
+        eye = eye[slots.clamp(min=0).long()].contiguous()
+        gen = torch.Generator(device=dev).manual_seed(12)
+        normal = torch.randn((4, d), generator=gen, device=dev)
+        bits = torch.randint(1, 1 << 23, (4, d), generator=gen, device=dev, dtype=torch.int32)
+        subnormal = (bits | (torch.randint(0, 2, (4, d), generator=gen, device=dev,
+                                           dtype=torch.int32) << 31)).view(torch.float32)
+        q = torch.cat([normal, normal * 3e37, subnormal]).contiguous()
+        q[0, :9] = 0.0
+        q[1, :9] = -0.0
+        got = sr.pivot_product(q, eye, slots)
+        want = torch.where((slots >= 0)[None, :], q[:, slots.clamp(min=0).long()], 0.0)
+        nz = want != 0
+        if not (torch.equal(got[nz].view(torch.int32), want[nz].view(torch.int32))
+                and bool((got[~nz] == 0).all())):
+            fail(f"pivot_product: one-hot pivots of {d} values do not give back the queries bit "
+                 f"for bit")
     # a row of 1 and 2^-140: its 2^-140 lie 140 binades below its 1, past
     # what the split holds (s = 0), so each is lost; the product is off by
     # at most the bits below 2^-133 of its values
@@ -2742,33 +2848,41 @@ def pivot_product_special(dev) -> None:
     lost = (mixed.double() @ x.T - got.double()).abs()
     if not bool((lost <= dot_bound(mixed, x) + 2.0 ** -133 * x.abs().sum(1)[None, :]).all()):
         fail("pivot_product: a row of 1 and 2^-140 off by more than its lost bits")
-    log("  NaN and inf queries as the GEMM; one-hot pivots give back normals, values near the "
-        "f32 maximum, subnormals and zeros bit for bit")
+    log("  NaN and inf queries as the GEMM (960, 40, 1,536); one-hot pivots give back normals, "
+        "values near the f32 maximum, subnormals and zeros bit for bit (200, 1,536, 4,400)")
 
 
 def pivot_product_edge_cases(dev) -> None:
     """The kernel against the float64 product at the emulated tests' edge
     shapes: int8 and bf16 tapes at widths that take 16-byte loads (128,
-    960, 1,088 int8; 128, 960, 1,024 bf16) and widths that rule them out
-    (40 and 100 int8, 9 and 36 bf16), 1, 33 and 70 queries (not a multiple
-    of the query tile), 300 pivots (not a multiple of 128) with -1
-    padding, so each slab width the plan picks (128 columns at int8 960,
-    64 at int8 1,088 and bf16 960 and 1,024), and B = 0."""
+    960, 1,088, 1,536 and 4,400 int8; 128, 960, 1,024 and 1,536 bf16) and
+    widths that rule them out (40, 100 and 1,100 int8, 9, 36 and 4,100
+    bf16), so one column group and several, 1, 33 and 70 queries (not a
+    multiple of the query tile), 300 pivots (not a multiple of 128) with
+    -1 padding, so each slab width the plan picks (128 columns at int8
+    960, 64 at int8 1,088 and bf16 960 and 1,024), and B = 0. Each call
+    counts one launch a column group."""
     from vss_tpu_torch.index import search as sr
 
     for dtype, d in ((torch.int8, 128), (torch.int8, 960), (torch.int8, 1088), (torch.int8, 40),
-                     (torch.int8, 100), (torch.int8, 200), (torch.bfloat16, 128),
-                     (torch.bfloat16, 960), (torch.bfloat16, 1024), (torch.bfloat16, 9),
-                     (torch.bfloat16, 36)):
+                     (torch.int8, 100), (torch.int8, 200), (torch.int8, 1100), (torch.int8, 1536),
+                     (torch.int8, 4400), (torch.bfloat16, 128), (torch.bfloat16, 960),
+                     (torch.bfloat16, 1024), (torch.bfloat16, 1536), (torch.bfloat16, 4100),
+                     (torch.bfloat16, 9), (torch.bfloat16, 36)):
         for B in (1, 33, 70):
             rows, slots, q, _ = pivot_world(B + d, B, 300, d, dtype, dev)
-            product_verdict(f"{str(dtype)[6:]} d={d} B={B}", sr.pivot_product(q, rows, slots), q,
-                            rows, slots)
+            before = sr._PIVOTS.launches
+            got = sr.pivot_product(q, rows, slots)
+            if sr._PIVOTS.launches - before != product_launches(d, dtype):
+                fail(f"pivot_product {dtype} d={d}: counted {sr._PIVOTS.launches - before} "
+                     f"launches, not one a column group ({product_launches(d, dtype)})")
+            product_verdict(f"{str(dtype)[6:]} d={d} B={B}", got, q, rows, slots)
     rows, slots, q, _ = pivot_world(3, 4, 300, 128, torch.int8, dev)
     before = sr._PIVOTS.launches
     if sr.pivot_product(q[:0], rows, slots).shape != (0, 300) or sr._PIVOTS.launches != before:
         fail("pivot_product with no queries launched or gave another shape")
-    log("  edge shapes: every width, dtype and batch within the f32 dot bound")
+    log("  edge shapes: every width, dtype and batch within the f32 dot bound, one launch "
+        "counted a column group")
 
 
 def seeds_near_ties(label, got, want, dots, q, x64, qn, pn, slots, metric: str, k: int) -> int:
@@ -2806,7 +2920,7 @@ def pivot_product_seeding(label, B, P, d, dev, metric="l2sq", n_seeds=4) -> dict
     pivot_seeds) against the route it replaced (the f32 GEMM, then
     pivot_seeds): seeds equal but at near-ties (`seeds_near_ties`), each
     seed's distance K1's (`gather_distances`) bit for bit; one launch of
-    each kernel, no host sync."""
+    each kernel (of the product, one a column group), no host sync."""
     from vss_tpu_torch import HNSWConfig, csrc
     from vss_tpu_torch.index import search as sr
     from vss_tpu_torch.ops.gather import gather_distances
@@ -2824,15 +2938,16 @@ def pivot_product_seeding(label, B, P, d, dev, metric="l2sq", n_seeds=4) -> dict
     finally:
         torch.cuda.set_sync_debug_mode("default")
     ran = {name: csrc.KERNELS[name].launches - n for name, n in before.items()}
-    if ran != {"pivot_product": 1, "pivot_seeds": 1}:
-        fail(f"pivot_product seeding {label}: launched {ran}, not one of each")
+    want_ran = {"pivot_product": product_launches(d, torch.int8), "pivot_seeds": 1}
+    if ran != want_ran:
+        fail(f"pivot_product seeding {label}: launched {ran}, not {want_ran}")
     dots = q @ pv.T
     want = sr._pivot_seeds_launch(dots, qn, pn, slots, tape, q, metric, k)
     if not same_bits(got[1], gather_distances(tape, got[0], q, metric, qn)):
         fail(f"pivot_product seeding {label}: seed distances are not K1's bit for bit")
     differ = seeds_near_ties(label, got[0], want[0], dots, q, pivot_rows_of(rows, slots), qn, pn,
                              slots, metric, k)
-    log(f"  seeding {label}: {B} x {P} x {d} int8 {metric}, k={k}: one launch of each, no host "
+    log(f"  seeding {label}: {B} x {P} x {d} int8 {metric}, k={k}: launches {ran}, no host "
         f"sync; seeds equal the f32 GEMM route's but in {differ} rows, each at a near-tie; "
         f"seed distances K1's bit for bit")
     return {"rows_differ": differ}
@@ -2842,7 +2957,8 @@ def pivot_product_timing(label, B, P, d, dev, out_dir) -> dict:
     """At one shape of the main paths, pivots from a PIVOT_TAPE_ROWS-row int8
     tape:
     the kernel's product against the float64 one (`product_verdict`); its
-    device time (the trace, 20 launches); the f32 GEMM it replaced (`torch.matmul` over the
+    device time a call (the trace, 20 calls, every column group's launch);
+    the f32 GEMM it replaced (`torch.matmul` over the
     pivots' f32 rows, the route before, CUDA events); the plain version
     (`_pivot_product_plain`, three f32 GEMMs); the bound: 6 B P d bf16
     operations (three planes) at 989 TFLOP/s against the pivot rows, the
@@ -2851,8 +2967,8 @@ def pivot_product_timing(label, B, P, d, dev, out_dir) -> dict:
 
     rows, slots, q, _ = pivot_world(B + P + d, B, P, d, torch.int8, dev, n=PIVOT_TAPE_ROWS)
     shares = product_verdict(label, sr.pivot_product(q, rows, slots), q, rows, slots)
-    ms = device_ms(lambda: sr.pivot_product(q, rows, slots), 20, "pivot_product_kernel",
-                   out_dir)
+    ms = device_ms_of(lambda: sr.pivot_product(q, rows, slots), 20, ["pivot_product_kernel"],
+                      product_launches(d, torch.int8), out_dir)
     pv = rows.float()
     library_ms = cuda_ms(lambda: q @ pv.T, 20)
     plain_ms = cuda_ms(lambda: sr._pivot_product_plain(q, rows, slots), 5)
@@ -2872,9 +2988,11 @@ def check_pivot_product(dev, out_dir) -> dict:
     """The pivot_product kernel: against the float64 product within the f32
     dot bound at the main paths' shapes (`PIVOT_PRODUCT_SHAPES`) and the
     edge shapes, NaN / inf queries and one-hot pivots
-    (`pivot_product_special`), one launch and no host sync; the seeding
-    through it against the f32 GEMM's at the gist and sift serving shapes
-    and the wave's (k = 1); the times (`pivot_product_timing`)."""
+    (`pivot_product_special`), one launch and no host sync (two at the
+    text-embedding width 1,536: one a column group); the seeding through
+    it against the f32 GEMM's at every shape of `PIVOT_PRODUCT_SHAPES`
+    (the wave's at k = 1), and under cosine at the gist and text-embedding
+    widths; the times (`pivot_product_timing`)."""
     from vss_tpu_torch.index import search as sr
 
     log("pivot_product")
@@ -2882,15 +3000,18 @@ def check_pivot_product(dev, out_dir) -> dict:
     pivot_product_special(dev)
     rows, slots, q, _ = pivot_world(5, 512, 4096, 960, torch.int8, dev)
     one_launch_no_sync(lambda: sr.pivot_product(q, rows, slots), "pivot_product")
-    log("  pivot_product on CUDA tensors: one launch, no host sync")
+    rows, slots, q, _ = pivot_world(5, 512, 4096, 1536, torch.int8, dev)
+    one_launch_no_sync(lambda: sr.pivot_product(q, rows, slots), "pivot_product", n=2)
+    log("  pivot_product on CUDA tensors: one launch a column group (960: one; 1,536: two), no "
+        "host sync")
     del rows, slots, q
     seeding = {}
-    for (label, B, P, d), n_seeds in zip(PIVOT_PRODUCT_SHAPES, (4, 4, 1)):
+    for label, B, P, d, n_seeds in PIVOT_PRODUCT_SHAPES:
         seeding[label] = pivot_product_seeding(label, B, P, d, dev, n_seeds=n_seeds)
-    seeding["gist serving, cosine"] = pivot_product_seeding("gist serving, cosine", 512, 65_536,
-                                                            960, dev, metric="cosine")
+    for label, d in (("gist serving, cosine", 960), ("openai serving, cosine", 1536)):
+        seeding[label] = pivot_product_seeding(label, 512, 65_536, d, dev, metric="cosine")
     shapes = [pivot_product_timing(label, B, P, d, dev, out_dir)
-              for label, B, P, d in PIVOT_PRODUCT_SHAPES]
+              for label, B, P, d, _ in PIVOT_PRODUCT_SHAPES]
     top = shapes[0]
     return dict(ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], library_ms=top["library_ms"], shapes=shapes,
@@ -4596,6 +4717,10 @@ def main() -> int:
                     help="build pivots.cu, seeds.cu, selectk.cu and gather.cu alone and run "
                          "check_pivot_product on tapes made on the card, without the corpus or "
                          "the index build; prints the kernel's entry and no result line")
+    ap.add_argument("--witnesses-only", action="store_true",
+                    help="build every kernel and run check_witnesses alone: the benchmark's "
+                         "sift1m index and churn cell at the seeds where an answer once named "
+                         "a row twice; prints the result line of the witnesses")
     ap.add_argument("--rescore-only", action="store_true",
                     help="build rescore.cu, scan.cu and selectk.cu alone and run check_rescore "
                          "on the corpus quantized to int8, then scan_topk at k=10 and 100 with "
@@ -4649,6 +4774,9 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {lib}: {line.strip()}")
 
+    if args.witnesses_only:
+        log(json.dumps({"witnesses": check_witnesses(dev)}))
+        return 0
     if args.pivot_product_only:
         log(smi)
         entry = check_pivot_product(dev, args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces"))
@@ -4732,10 +4860,14 @@ def main() -> int:
 
     unreached = N - int(reachable_mask(idx.graph).sum())
     build_stats["unreached_after_repair"] = unreached
+    twice = rows_listing_an_id_twice(idx.graph.adj0) + rows_listing_an_id_twice(
+        idx.graph.upper_adj)
+    if twice:
+        fail(f"the auto build wrote {twice} adjacency rows that list an id twice")
     log(f"auto build: sampled IVF list recall@10 {build_stats['ivf_sampled_recall']:.4f}, scan "
         f"fallback {'ran' if build_stats['scan_fallback'] else 'did not run'}, "
         f"{build_stats['bridged']} nodes bridged by the repair, {unreached} of {N} still out of "
-        f"reach of the entry over base-layer edges (64 sweeps)")
+        f"reach of the entry over base-layer edges (64 sweeps), no row lists an id twice")
     # the sampled oracle runs the scan (K2, then rescore_topk); refine, the
     # upper levels and the back-links select neighbours (the
     # select_neighbors kernel), the back-links gather their rows (K5)

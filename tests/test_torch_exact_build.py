@@ -177,6 +177,32 @@ def test_repair_bridges_disconnected_clusters(rng):
     assert recall(rows.numpy(), _truth(q, vecs, 10)) >= 0.9
 
 
+def _rows_listing_an_id_twice(adj: torch.Tensor) -> int:
+    s = torch.sort(adj, 1).values
+    return int(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any(1).sum())
+
+
+def test_repair_lists_no_id_twice_in_a_row():
+    """Tight clusters far apart: the repair bridges many nodes, and an
+    unreached node's row often lists its nearest anchor already. No row of
+    either layer lists an id twice after the repair (writing each bridge
+    whatever the row held put the anchor twice in 4 of 5,000 rows here),
+    and so no answer of the search names a row twice."""
+    rng = np.random.default_rng(0)
+    n, d, k = 5000, 16, 100
+    cent = rng.normal(size=(k, d)).astype(np.float32) * 10
+    x = cent[rng.integers(0, k, n)] + rng.normal(size=(n, d)).astype(np.float32) * 0.3
+    cfg = TConfig(dims=d, m=16, storage_dtype="int8")
+    stats = {}
+    graph, _ = teb.build_graph_exact(x, cfg, seed=3, device="cpu", stats=stats)
+    assert stats["bridged"] > 100
+    assert _rows_listing_an_id_twice(graph.adj0) == 0
+    assert _rows_listing_an_id_twice(graph.upper_adj) == 0
+    assert int(reachable_mask(graph).sum()) == n
+    _, si = hnsw_search(graph, cfg, torch.from_numpy(x[:256] + 0.05), 10, ef=64)
+    assert _rows_listing_an_id_twice(si) == 0
+
+
 def test_repair_noop_on_connected_graph(rng):
     vecs = rng.standard_normal((1000, 16)).astype(np.float32)
     cfg = TConfig(dims=16, metric="l2sq")

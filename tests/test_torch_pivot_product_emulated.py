@@ -10,12 +10,16 @@ product's: every entry within the f32 dot bound 2 d 2^-24 sum |q||x| of
 the float64 product. Here `tests/cuda_emulation.h` stands in for the
 CUDA headers (`wgmma`, `cp.async`, the mbarriers), so the cases hold the
 kernel's C++ to that bound on int8 and bf16 tapes, at widths that take
-16-byte loads (128, 960, the widest the plan takes) and widths that rule
-them out, with B not a multiple of the query tile and B = 0, P with -1
-padding, each slab width the plan picks, a NaN and an inf query (NaN
-and inf where the f32 product has them), and one-hot pivots that give
-back normals, values near the f32 maximum and subnormals bit for bit. Two mutants (the lo
-plane dropped; hi alone) must each fail a case. The emulation shows what
+16-byte loads (128, 960, the widest one column group holds, the
+text-embedding width 1,536 in two groups, 4,400 in five) and widths that
+rule them out, with B not a multiple of the query tile and
+B = 0, P with -1 padding, each slab width the plan picks, a NaN and an
+inf query (NaN and inf where the f32 product has them), and one-hot
+pivots that give back normals, values near the f32 maximum and
+subnormals bit for bit, in one column group and across several. The
+plan of rows that one group holds is pinned to its arithmetic, written
+out here. Two mutants (the lo plane dropped; hi alone) must each fail a
+case. The emulation shows what
 the kernel computes, never how fast, and it cannot show a missing
 barrier. One test, marked `cuda`, holds the kernel against `torch.matmul`
 in f32 on the card and the seeding through it against the f32 GEMM's,
@@ -66,16 +70,21 @@ def mutant(request, tmp_path_factory):
 
 def _launch(lib, q, rows, slots, dtype=None) -> torch.Tensor:
     """The emulated kernel's product over the pivots' rows [P, d]; -7
-    wherever it wrote nothing."""
+    wherever it wrote nothing. The launches it reports are one a column
+    group of the plan (none without queries or pivots)."""
     fn = emulation.entry(lib, tsearch._PIVOTS)
     B, d = q.shape
     P = slots.shape[0]
     out = torch.full((B, P), -7.0)
     code = csrc.dtype_code(rows.dtype) if dtype is None else dtype
-    rc = fn(q.data_ptr(), rows.data_ptr(), slots.data_ptr(), out.data_ptr(), B, P, d, code, None)
+    launched = ctypes.c_int(-1)
+    rc = fn(q.data_ptr(), rows.data_ptr(), slots.data_ptr(), out.data_ptr(), B, P, d, code,
+            ctypes.byref(launched), None)
     if rc != 0:
         raise RuntimeError(f"emulated pivot_product refused ({rc})")
     assert lib.emu_divergence_count() == 0
+    groups = -(-d // _plan(lib, d, rows.element_size())[4]) if B and P else 0
+    assert launched.value == groups, (launched.value, groups)
     return out
 
 
@@ -120,23 +129,55 @@ def _within_bound(got, q, rows, slots) -> float:
 
 
 # tape dtype and width: rows of whole 16-byte chunks (16-byte cp.async) at
-# 128, 960 and the widest the plan takes, and widths that rule them out
-TAPES = [("int8", 128), ("int8", 960), ("int8", 1088), ("int8", 40), ("int8", 100),
-         ("int8", 200), ("bf16", 128), ("bf16", 1024), ("bf16", 36), ("bf16", 9)]
+# 128, 960, the widest one column group holds, 1,536 (two groups) and 4,400
+# (five, the last one narrower), and widths that rule them out (two of them
+# in two and five groups, the last one narrower)
+TAPES = [("int8", 128), ("int8", 960), ("int8", 1088), ("int8", 1536), ("int8", 4400),
+         ("int8", 40), ("int8", 100), ("int8", 200), ("int8", 1100), ("bf16", 128),
+         ("bf16", 1024), ("bf16", 1536), ("bf16", 4100), ("bf16", 36), ("bf16", 9)]
 # B, P: one query; B not a multiple of the 32-query product with P not a
 # multiple of the 128-row tile; more queries than a tile of wide rows
 SHAPES = [(1, 300), (33, 200), (70, 129)]
 
 
 def _plan(lib, d, elem, nq=512, P=65536):
-    """The kernel's plan for these sizes on the H100: (shared memory bytes,
-    0 if refused; slab width; stages a consumer; queries a tile)."""
+    """The kernel's plan for these sizes on the H100, of its first column
+    group: (shared memory bytes, 0 if refused; slab width; stages a
+    consumer; queries a tile; the group's columns)."""
     fn = lib.vss_pivot_product_plan
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-    out = [ctypes.c_int() for _ in range(3)]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    out = [ctypes.c_int() for _ in range(4)]
     smem = fn(nq, P, d, elem, _SMEM, *(ctypes.byref(v) for v in out))
     return (smem, *(v.value for v in out))
+
+
+def _one_group_plan(d, elem, nq=512):
+    """The plan's arithmetic for rows that one column group holds, written
+    out: (shared memory bytes, 0 if nothing fits; slab width; stages a
+    consumer; queries a tile). The barriers take 1,024 bytes, then the
+    ring of each consumer's stages of 128 rows, then from a 1,024-byte
+    boundary the three planes of the tile's queries (atoms of 64 columns,
+    128 bytes a query) and a shift a query. The first of (128 columns, 4
+    stages) .. (128, 1), (64, 4) .. (64, 1) under which 32 queries fit
+    wins; one slab takes at most 2 stages and as many queries as fit."""
+    d16 = -(-d // 16) * 16
+    qcols = -(-d16 // 64)
+    per_query = 3 * qcols * 128 + 4
+    nq_pad = -(-nq // 32) * 32
+    for w, nsw in ((128, 4), (128, 3), (128, 2), (128, 1), (64, 4), (64, 3), (64, 2), (64, 1)):
+        nslab = -(-d16 // w)
+        if nslab == 1 and nsw > 2:
+            continue
+        q_off = -(-(1024 + 2 * nsw * 128 * min(d16, w) * elem) // 1024) * 1024
+        if q_off >= _SMEM:
+            continue
+        fit = (_SMEM - q_off) // per_query // 32 * 32
+        if fit < 32:
+            continue
+        nqt = min(nq_pad, fit) if nslab == 1 else 32
+        return q_off + 3 * qcols * nqt * 128 + 4 * nqt, d16 if nslab == 1 else w, nsw, nqt
+    return 0, 0, 0, 0
 
 
 @pytest.mark.parametrize("dtype,d", TAPES)
@@ -198,12 +239,14 @@ def _special_rows(rng, B, d) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([normal, normal * np.float32(3e37), sub, zeros]))
 
 
-@pytest.mark.parametrize("d", [200, 960])
+@pytest.mark.parametrize("d", [200, 960, 1536, 4400])
 def test_emulated_one_hot_pivots_give_back_the_queries(emulated, d):
     """Against one-hot rows each product is one query value, which the
     three planes hold whole: bit for bit for normals, values near the f32
     maximum and subnormals (s lifts them, 2^-s puts them back); a zero
-    gives a zero."""
+    gives a zero. Past one column group (1,536: two; 4,400: five) the
+    value comes from its group, each group with its own s, and the other
+    groups add zeros."""
     eye, slots = _one_hot(d, d + 56)
     q = _special_rows(np.random.default_rng(d), 2, d).contiguous()
     got = _launch(emulated, q, eye, slots)
@@ -237,34 +280,56 @@ def test_emulated_pivot_product_empty_batch_and_no_pivots(emulated):
 
 
 def test_emulated_pivot_product_refuses_what_it_cannot_take(emulated):
-    """An f32 tape (dtype 0) and widths past the plan (1,089 int8, 1,025
-    bf16): refused."""
+    """An f32 tape (dtype 0): refused."""
     table, slots, q = _world(5, 2, 64, 960, "bf16")
     with pytest.raises(RuntimeError, match="refused"):
         _launch(emulated, q, table, slots, dtype=0)
-    for dtype, d in (("int8", 1089), ("bf16", 1025)):
-        wide, wslots, wq = _world(6, 2, 64, d, dtype)
-        with pytest.raises(RuntimeError, match="refused"):
-            _launch(emulated, wq, wide, wslots)
 
 
 def test_pivot_product_takes_the_widths_the_plan_fits(emulated):
-    """`pivot_product_takes` (the routing's test, by `_PIVOT_PRODUCT_MAX_D`)
-    accepts exactly the widths for which the kernel's plan fits a block's
-    shared memory: the table holds the widest of each dtype, and the plan
-    fits every width up to it and none past it, at one query and at 512;
-    the plan at the gist width (slabs of 128, one stage a consumer, 32
-    queries, 218,240 bytes) and at sift's (one slab, 192 queries)."""
-    for dtype, elem in ((torch.int8, 1), (torch.bfloat16, 2)):
-        fits = [d for d in range(1, 2049) if _plan(emulated, d, elem)[0] > 0]
-        assert fits == list(range(1, tsearch._PIVOT_PRODUCT_MAX_D[dtype] + 1)), dtype
-        for d in list(range(1, 200, 7)) + list(range(900, 1200, 4)) + [1024, 1025, 1088, 1089]:
-            assert tsearch.pivot_product_takes(dtype, d) == (_plan(emulated, d, elem)[0] > 0) \
-                == (_plan(emulated, d, elem, nq=1)[0] > 0), (dtype, d)
-    assert not tsearch.pivot_product_takes(torch.float32, 128)
-    assert _plan(emulated, 960, 1) == (218240, 128, 1, 32)
-    smem, slab, nsw, nqt = _plan(emulated, 128, 1)
-    assert smem > 0 and (slab, nsw, nqt) == (128, 2, 192)
+    """`pivot_product_takes` (the routing's test) accepts every int8 and
+    bf16 tape and no f32 one, and the kernel's plan takes every width, at
+    one query and at 512, in the fewest column groups that fit: one group
+    of the whole row up to 1,088 int8 / 1,024 bf16 values; past it groups
+    of whole 64-column atoms, none wider than that, where one group fewer
+    would have to be wider. The plan at the gist width (slabs of 128, one
+    stage a consumer, 32 queries, 218,240 bytes, one group) and at sift's
+    (one slab, 192 queries), and at the text-embedding width 1,536 (two
+    groups of 768 columns: int8 in slabs of 128 with two stages a
+    consumer, bf16 with one)."""
+    assert [tsearch.pivot_product_takes(t) for t in (torch.int8, torch.bfloat16, torch.float32)] \
+        == [True, True, False]
+    for elem, widest in ((1, 1088), (2, 1024)):
+        for d in list(range(1, 4609, 5)) + [1024, 1025, 1088, 1089, 1536, 3072, 4096, 4097, 4352,
+                                            4353, 8192, 12288]:
+            for nq in (1, 512):
+                smem, _, _, _, group = _plan(emulated, d, elem, nq=nq)
+                assert smem > 0, (elem, d, nq)
+                if d <= widest:
+                    assert group == d, (elem, d, nq)
+                    continue
+                groups, d16 = -(-d // group), -(-d // 16) * 16
+                assert group <= widest and group % 64 == 0, (elem, d, nq)
+                assert -(-(-(-d16 // (groups - 1))) // 64) * 64 > widest, (elem, d, nq)
+    assert _plan(emulated, 960, 1) == (218240, 128, 1, 32, 960)
+    smem, slab, nsw, nqt, group = _plan(emulated, 128, 1)
+    assert smem > 0 and (slab, nsw, nqt, group) == (128, 2, 192, 128)
+    assert _plan(emulated, 1536, 1) == (214144, 128, 2, 32, 768)
+    assert _plan(emulated, 1536, 2)[1:] == (128, 1, 32, 768)
+    assert _plan(emulated, 4352, 1)[4] == 1088 and _plan(emulated, 4096, 2)[4] == 1024
+
+
+@pytest.mark.parametrize("dtype,elem,widest", [("int8", 1, 1088), ("bf16", 2, 1024)])
+def test_the_plan_of_rows_one_group_holds_is_its_arithmetic(emulated, dtype, elem, widest):
+    """Up to the widest row one column group holds, the plan is one group
+    of the whole row, and its slab, stages, queries a tile and shared
+    memory are those of the plan's arithmetic (`_one_group_plan`) at every
+    width, at one query and at 512: the column groups change nothing
+    there. Past it there is more than one group."""
+    for d in range(1, widest + 1):
+        for nq in (1, 512):
+            assert _plan(emulated, d, elem, nq=nq) == (*_one_group_plan(d, elem, nq), d), (d, nq)
+    assert _plan(emulated, widest + 1, elem)[4] < widest + 1
 
 
 def test_mutants_fail_a_case(mutant):
@@ -322,7 +387,7 @@ def test_split_planes_keep_inf_and_nan_whole():
 def test_plain_pivot_product_within_the_bound_and_the_cpu_route():
     """The plain version (`_pivot_product_plain`) holds the same bound, and
     the wrapper takes it for CPU tensors."""
-    for dtype, d in (("int8", 960), ("bf16", 36)):
+    for dtype, d in (("int8", 960), ("bf16", 36), ("int8", 1536)):
         table, slots, q = _world(8, 5, 300, d, dtype)
         plain = tsearch._pivot_product_plain(q, table, slots)
         _within_bound(plain, q, table, slots)
@@ -332,9 +397,7 @@ def test_plain_pivot_product_within_the_bound_and_the_cpu_route():
 def test_pivot_product_wrapper_refuses_what_it_cannot_take():
     table, slots, q = _world(9, 2, 64, 16, "int8")
     for bad in (dict(rows=table.float()), dict(q=q.double()), dict(q=q[:, :8]),
-                dict(rows=table[:5]),
-                dict(rows=torch.zeros((64, 1100), dtype=torch.int8), q=torch.zeros((2, 1100))),
-                dict(rows=torch.zeros((64, 1040), dtype=torch.bfloat16), q=torch.zeros((2, 1040))),
+                dict(rows=table[:5]), dict(rows=table[:, :0], q=q[:, :0]),
                 dict(pivot_slots=slots[None])):
         kw = dict(dict(q=q, rows=table, pivot_slots=slots), **bad)
         with pytest.raises(ValueError, match="pivot_product"):

@@ -221,6 +221,10 @@ def test_index_search_takes_the_cached_pivots(monkeypatch):
     assert idx._pivot_sample()[1] is rows and idx.pivots()[2] is pn  # cached
     assert len(seen) == 1 and seen[0][4] is rows and seen[0][7] is pn
     assert rows.dtype == torch.int8 and pn.shape == slots.shape
+    # the sample's pivot count, real and padded, in the index's stats
+    assert idx.build_stats["pivots"] == {"real": int((slots >= 0).sum()),
+                                         "padded": int(slots.shape[0])}
+    assert 0 < idx.build_stats["pivots"]["real"] <= slots.shape[0]
     pv = idx.pivots()[1]
     assert pv.dtype == torch.float32 and torch.equal(pv, rows.float())
     monkeypatch.setattr(tsearch, "scored_pivot_seeds", real)
@@ -316,16 +320,24 @@ def test_scored_pivot_seeds_dispatch(monkeypatch):
     tsearch.scored_pivot_seeds(g16, cfg, q, slots, pv, 4, None, pn)
     assert calls[-2] == ("product", (3, 16), torch.bfloat16, (4096,))
     assert calls[-1][:3] == ("kernel", (3, 4096), 4)
-    # an f32 tape, and an int8 tape wider than the kernel's plan takes:
-    # torch.matmul, then the pivot_seeds kernel
+    # int8 tapes of text-embedding width (1,536: the kernel's column
+    # groups) and wider (4,400, past what the kernel took before its
+    # groups): the kernel's product
+    for d_ in (1536, 4400):
+        emb = types.SimpleNamespace(vectors=torch.empty((5000, d_), dtype=torch.int8,
+                                                        device=meta))
+        tsearch.scored_pivot_seeds(emb, TConfig(dims=d_), torch.empty((3, d_), device=meta),
+                                   slots, torch.empty((4096, d_), dtype=torch.int8, device=meta),
+                                   4, None, pn)
+        assert calls[-2] == ("product", (3, d_), torch.int8, (4096,))
+    # an f32 tape: torch.matmul, then the pivot_seeds kernel
     g32 = types.SimpleNamespace(vectors=torch.empty((5000, 16), device=meta))
-    wide = types.SimpleNamespace(vectors=torch.empty((5000, 1100), dtype=torch.int8, device=meta))
-    for graph, d_ in ((g32, 16), (wide, 1100)):
-        n = len(calls)
-        tsearch.scored_pivot_seeds(graph, TConfig(dims=d_), torch.empty((3, d_), device=meta),
-                                   slots, torch.empty((4096, d_), device=meta), 4, None, pn)
-        assert [c[0] for c in calls[n:]] == ["kernel"] and calls[-1][1:3] == ((3, 4096), 4)
-    assert not tsearch.pivot_product_takes(torch.int8, 1100)
+    n = len(calls)
+    tsearch.scored_pivot_seeds(g32, TConfig(dims=16), torch.empty((3, 16), device=meta),
+                               slots, torch.empty((4096, 16), device=meta), 4, None, pn)
+    assert [c[0] for c in calls[n:]] == ["kernel"] and calls[-1][1:3] == ((3, 4096), 4)
+    assert [tsearch.pivot_product_takes(t) for t in (torch.int8, torch.bfloat16, torch.float32)] \
+        == [True, True, False]
 
     def refuse(*a, **k):
         raise AssertionError("a kernel launched for CPU tensors")

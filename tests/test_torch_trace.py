@@ -15,6 +15,8 @@ N, D = 3000, 16   # above scan_topk's 16 x 128 rows: its native route
 SEARCH = ["vss.search.intake", "vss.search.pivots", "vss.search.seed", "vss.search.beam",
           "vss.search.rerank"]
 SCAN = ["vss.scan.intake", "vss.scan.pass", "vss.scan.select", "vss.scan.rescore"]
+# spans inside a phase: the pivot product inside the seeding
+NESTED = {"vss.search.seed": ["vss.search.product"]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,11 +81,16 @@ def test_each_call_records_its_phases_in_order_inside_its_span(index, path, oute
     spans = _spans(prof)
     tops = [s for s in spans if s[0] == outer]
     assert len(tops) == 2
+    nested = [n for c in children for n in NESTED.get(c, [])]
     for name, t0, t1 in tops:
         inside = [s for s in spans if s[0] != outer and t0 <= s[1] and s[2] <= t1]
-        assert [s[0] for s in inside] == children
-        assert all(a[2] <= b[1] for a, b in zip(inside, inside[1:]))
-    assert len(spans) == 2 * (1 + len(children))
+        phases = [s for s in inside if s[0] not in nested]
+        assert [s[0] for s in phases] == children
+        assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
+        for p in phases:
+            within = [s[0] for s in inside if s[0] in nested and p[1] <= s[1] and s[2] <= p[2]]
+            assert within == NESTED.get(p[0], []), p[0]
+    assert len(spans) == 2 * (1 + len(children) + len(nested))
     # the answers are the same, bit for bit, with the profiler on and off
     for a, b in zip(off, on):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -198,9 +198,12 @@ class Kernel:
         fn.argtypes = argtypes
         return fn
 
-    def launch(self, operands, *args) -> None:
+    def launch(self, operands, *args, launched=None) -> None:
         """Launch on the current stream of the one CUDA device that holds
-        every tensor in `operands`; raise on a launch error."""
+        every tensor in `operands`; raise on a launch error. An entry point
+        that may launch more than once reports its launches through a
+        `ctypes.c_int` among `args`, given again as `launched`: the count
+        grows by its value, else by one."""
         device = operands[0].device
         for t in operands:
             if t.device != device:
@@ -223,7 +226,7 @@ class Kernel:
                 f"{self._err(rc).decode()})"
             )
         with self._count_lock:
-            self.launches += 1
+            self.launches += 1 if launched is None else launched.value
 
 
 def operand(t):

@@ -55,10 +55,17 @@
 //    the gist width: 32 x 960 x 3 planes x 2 bytes = 184,320 bytes, the
 //    ring of 128-column stages (one a consumer, 16 KB each) 32,768, the
 //    barriers 1,024 and the shifts 128, 218,240 of the block's 232,448.
-//    Widths past what the plan fits (above 1,088 at int8, 1,024 at bf16)
-//    are refused and keep the f32 product; the routing reads them from
-//    `index/search.py`'s `_PIVOT_PRODUCT_MAX_D`, which a test holds to
-//    this plan.
+//    Wider rows (above 1,088 at int8, 1,024 at bf16) go in column
+//    groups: the fewest of equal width in whole atoms (64 columns) whose
+//    planes fit, one launch a group over the same tiles, each group's
+//    products added to the sums of those before it in `out` (the
+//    text-embedding width 1,536: two groups of 768 columns, 128-column
+//    slabs, two stages a consumer). A group's queries get their own s
+//    over its columns. Group i's sum is within 2 w_i 2^-24 S_i of its
+//    columns' (S_i: their sum |q||x|), and each addition within 2^-24 S,
+//    so g >= 2 groups stay within (2 max w_i + g) 2^-24 S <= 2 d 2^-24 S,
+//    the f32 dot bound, at every width; a one-hot pivot's value comes from one
+//    group and zeros from the others, so it stays bit for bit.
 //  * The pivot rows through a ring of stages, each consumer's own:
 //    producer thread i copies row i of each tile (zeros where its slot is
 //    -1), in 16-byte cp.async with the tail zero-filled where a row is a
@@ -198,18 +205,18 @@ __device__ __forceinline__ void split3(float v, int s, uint32_t& hi, uint32_t& m
   lo = __float_as_uint(r2) >> 16;
 }
 
-// Write the three planes of queries q0.. (nqt of them, zeros past nq)
-// into the image at `img`, thread `i` of `n`: two columns a unit, one
-// 32-bit store a plane.
+// Write the three planes of queries q0.. (nqt of them, zeros past nq; d
+// values a row, rows ld apart) into the image at `img`, thread `i` of
+// `n`: two columns a unit, one 32-bit store a plane.
 __device__ __forceinline__ void stage_queries(unsigned char* img, const float* q,
-                                              const int* shift, int nq, int d, int q0,
-                                              const Plan& p, int i, int n) {
+                                              const int* shift, int nq, int d, int64_t ld,
+                                              int q0, const Plan& p, int i, int n) {
   const int half = p.d16 / 2;
   for (int u = i; u < p.nqt * half; u += n) {
     const int qn = u / half, c = 2 * (u % half);
     float v0 = 0.0f, v1 = 0.0f;
     if (q0 + qn < nq) {
-      const float* row = q + static_cast<int64_t>(q0 + qn) * d;
+      const float* row = q + (q0 + qn) * ld;
       if (c < d) v0 = row[c];
       if (c + 1 < d) v1 = row[c + 1];
     }
@@ -360,11 +367,13 @@ __device__ __forceinline__ int slab_width(const Plan& p, int z) {
 // The producer: thread i (of 128) copies row i of every tile of the
 // pivots' rows into the ring. Tile j goes to consumer j % 2; the two consumers' tiles 2m and
 // 2m + 1 are filled slab by slab in turn. A row past P or of slot -1 is
-// zeros; the columns past d are zeros. `wide`: rows of whole 16-byte
-// chunks, copied by cp.async; else value by value.
+// zeros; the columns past d are zeros (rows ld values apart). `wide`:
+// rows that start on 16 bytes, copied by cp.async in 16-byte chunks; else
+// value by value.
 template <typename TX>
 __device__ __forceinline__ void produce(const TX* __restrict__ rows, const int* __restrict__ slots,
-                                        int P, int d, bool wide, const Plan& p, int64_t first,
+                                        int P, int d, int64_t ld, bool wide, const Plan& p,
+                                        int64_t first,
                                         unsigned char* ring, uint64_t* full, uint64_t* empty,
                                         int i) {
   using Raw = typename std::conditional<sizeof(TX) == 1, uint8_t, uint16_t>::type;
@@ -386,7 +395,7 @@ __device__ __forceinline__ void produce(const TX* __restrict__ rows, const int* 
         const int have = slot[c] < 0 ? 0 : (d - col0 < w ? d - col0 : w);  // columns of the row
         unsigned char* dst = ring + st * p.stage_bytes + i * w * static_cast<int>(sizeof(TX));
         const int64_t row = slot[c] < 0 ? 0 : (first + (CONSUMERS * m + c) * p.per_q) * ROWS + i;
-        const TX* src = rows + row * d + col0;
+        const TX* src = rows + row * ld + col0;
         if (wide) {
           const int bytes = have * static_cast<int>(sizeof(TX));
           const unsigned char* s8 = reinterpret_cast<const unsigned char*>(src);
@@ -407,8 +416,9 @@ __device__ __forceinline__ void produce(const TX* __restrict__ rows, const int* 
 
 // A consumer warpgroup (wg 0 or 1): tiles first + (wg + 2i) per_q.
 template <typename TX>
-__device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, const Plan& p,
-                                        int64_t first, int q0, const unsigned char* ring,
+__device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, bool accumulate,
+                                        const Plan& p, int64_t first, int q0,
+                                        const unsigned char* ring,
                                         const unsigned char* qs, const int* shift,
                                         uint64_t* full, uint64_t* empty, int wg, int ltid) {
   const int warp = ltid >> 5, lane = ltid & 31, g = lane >> 2, t = lane & 3;
@@ -432,8 +442,10 @@ __device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, 
       mbar_arrive(&empty[st]);
       pos.advance(p.nsw);
     };
-    // chunk c's products, times 2^-s, into out: lane (g, t) holds pivot
-    // rows 32 warp + 16 mt + 8 h + g and queries 8 j + 2 t + e
+    // chunk c's products, times 2^-s, into out (added to what is there
+    // when `accumulate`: an earlier column group's sums, which this thread
+    // wrote): lane (g, t) holds pivot rows 32 warp + 16 mt + 8 h + g and
+    // queries 8 j + 2 t + e
     auto store = [&](int c) {
       const int qb = c * NC;
 #pragma unroll
@@ -449,7 +461,10 @@ __device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, 
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int64_t r = tile * ROWS + 32 * warp + 16 * mt + 8 * h + g;
-              if (r < P) o[r] = __fmul_rn(acc[mt][4 * jn + 2 * h + e], scale);
+              if (r < P) {
+                const float v = __fmul_rn(acc[mt][4 * jn + 2 * h + e], scale);
+                o[r] = accumulate ? __fadd_rn(o[r], v) : v;
+              }
             }
         }
     };
@@ -498,7 +513,7 @@ template <typename TX>
 __global__ void __launch_bounds__(pp::THREADS, 1)
     pivot_product_kernel(const float* __restrict__ q, const TX* __restrict__ rows,
                          const int* __restrict__ slots, float* __restrict__ out, int nq, int P,
-                         int d, int wide, pp::Plan p) {
+                         int d, int64_t ld, int wide, int accumulate, pp::Plan p) {
   using namespace pp;
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -519,21 +534,21 @@ __global__ void __launch_bounds__(pp::THREADS, 1)
   }
   // each query's s, a warp a query, then the tile's planes
   for (int n = tid >> 5; n < p.nqt; n += THREADS / 32) {
-    const int s = q0 + n < nq ? query_shift(q + static_cast<int64_t>(q0 + n) * d, d, tid & 31)
-                              : 0;
+    const int s = q0 + n < nq ? query_shift(q + (q0 + n) * ld, d, tid & 31) : 0;
     if ((tid & 31) == 0) shift[n] = s;
   }
   __syncthreads();
-  stage_queries(qs, q, shift, nq, d, q0, p, tid, THREADS);
+  stage_queries(qs, q, shift, nq, d, ld, q0, p, tid, THREADS);
   fence_proxy_async();
   __syncthreads();
   const int wg = tid >> 7;
   if (wg == 0) {
     setmaxnreg_dec<40>();
-    produce<TX>(rows, slots, P, d, wide != 0, p, first, ring, full, empty, tid);
+    produce<TX>(rows, slots, P, d, ld, wide != 0, p, first, ring, full, empty, tid);
   } else {
     setmaxnreg_inc<232>();
-    consume<TX>(out, nq, P, p, first, q0, ring, qs, shift, full, empty, wg - 1, tid & 127);
+    consume<TX>(out, nq, P, accumulate != 0, p, first, q0, ring, qs, shift, full, empty, wg - 1,
+                tid & 127);
   }
 }
 
@@ -586,52 +601,87 @@ inline bool plan(Plan& p, int nq, int P, int d, int elem, int sms, int smem_max)
   return true;
 }
 
+// The columns of a group for rows of d values: d itself where the plan
+// fits the whole row (one group, the plan as for any narrower row), else
+// the width of the fewest groups of equal width in whole atoms that the
+// plan fits (the last group takes what is left); 0 where not even one
+// atom fits. The plan's fit does not depend on nq or P.
+inline int group_width(int d, int elem, int sms, int smem_max) {
+  Plan p;
+  if (plan(p, 1, 1, d, elem, sms, smem_max)) return d;
+  const int d16 = static_cast<int>(cdiv(d, 16)) * 16;
+  for (int g = 2; g <= cdiv(d16, ATOM_COLS); ++g) {
+    const int w = static_cast<int>(cdiv(cdiv(d16, g), ATOM_COLS)) * ATOM_COLS;
+    if (plan(p, 1, 1, w, elem, sms, smem_max)) return w;
+  }
+  return 0;
+}
+
 }  // namespace pp
 
+// The product's launches, one a column group, with the groups launched
+// in *groups.
 template <typename TX>
 int launch(const float* q, const void* x, const int* slots, float* out, int nq, int P, int d,
-           cudaStream_t s) {
+           int* groups, cudaStream_t s) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  pp::Plan p;
-  if (!pp::plan(p, nq, P, d, sizeof(TX), sms, smem_max))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>(p.q_tiles) * p.per_q;
+  const int gw = pp::group_width(d, sizeof(TX), sms, smem_max);
+  if (gw == 0) return static_cast<int>(cudaErrorInvalidValue);
+  // rows of whole 16-byte chunks from a 16-byte start: every group's row
+  // starts on 16 bytes too (a group starts on a whole atom)
   const int wide = (d * sizeof(TX)) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  cudaFuncSetAttribute(pivot_product_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       p.smem);
-  pivot_product_kernel<TX><<<blocks, pp::THREADS, p.smem, s>>>(q, static_cast<const TX*>(x),
-                                                               slots, out, nq, P, d, wide, p);
-  return static_cast<int>(cudaGetLastError());
+  // the groups in turn on the stream, each after the one before it
+  for (int c0 = 0; c0 < d; c0 += gw) {
+    const int w = d - c0 < gw ? d - c0 : gw;
+    pp::Plan p;
+    if (!pp::plan(p, nq, P, w, sizeof(TX), sms, smem_max))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>(p.q_tiles) * p.per_q;
+    cudaFuncSetAttribute(pivot_product_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         p.smem);
+    pivot_product_kernel<TX><<<blocks, pp::THREADS, p.smem, s>>>(
+        q + c0, static_cast<const TX*>(x) + c0, slots, out, nq, P, w, d, wide, c0 > 0, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*groups;
+  }
+  return 0;
 }
 
 }  // namespace vss
 
 // dots [nq, P] f32 = q [nq, d] f32 . x[p] for the pivots' rows x [P, d],
-// int8 (dtype I8) or bf16 (BF16), 0 where slots[p] is -1; f32 rows and
-// widths the plan cannot fit are refused.
+// int8 (dtype I8) or bf16 (BF16), 0 where slots[p] is -1; f32 rows are
+// refused. Rows wider than one group fits take one launch a group;
+// *launched receives the launches made (0 for no queries or pivots).
 extern "C" int vss_pivot_product(const float* q, const void* x, const int* slots, float* out,
-                                 int nq, int P, int d, int dtype, void* stream) {
+                                 int nq, int P, int d, int dtype, int* launched, void* stream) {
   using namespace vss;
+  *launched = 0;
   if (d <= 0 || nq < 0 || P < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0 || P == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == I8) return launch<int8_t>(q, x, slots, out, nq, P, d, s);
-  if (dtype == BF16) return launch<__nv_bfloat16>(q, x, slots, out, nq, P, d, s);
+  if (dtype == I8) return launch<int8_t>(q, x, slots, out, nq, P, d, launched, s);
+  if (dtype == BF16) return launch<__nv_bfloat16>(q, x, slots, out, nq, P, d, launched, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The plan's shared memory for these sizes (0: refused), and through the
-// pointers its slab width, stages a consumer and queries a tile.
+// The plan of the first column group for these sizes: its shared memory
+// (0: refused), and through the pointers its slab width, stages a
+// consumer, queries a tile and the group's columns (d for one group).
 extern "C" int vss_pivot_product_plan(int nq, int P, int d, int elem, int smem_max,
-                                      int* slab_out, int* nsw_out, int* nqt_out) {
+                                      int* slab_out, int* nsw_out, int* nqt_out,
+                                      int* group_out) {
   vss::pp::Plan p;
-  if (d <= 0 || nq <= 0 || P <= 0 || !vss::pp::plan(p, nq, P, d, elem, 132, smem_max))
-    return 0;
+  if (d <= 0 || nq <= 0 || P <= 0) return 0;
+  const int gw = vss::pp::group_width(d, elem, 132, smem_max);
+  if (gw == 0 || !vss::pp::plan(p, nq, P, gw, elem, 132, smem_max)) return 0;
   *slab_out = p.slab;
   *nsw_out = p.nsw;
   *nqt_out = p.nqt;
+  *group_out = gw;
   return static_cast<int>(p.smem);
 }

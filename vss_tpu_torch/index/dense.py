@@ -285,10 +285,16 @@ class HNSWIndex:
     def _pivot_sample(self, min_pivots: int = 8):
         """The pivots as the search seeds from them (`pivot_rows`: slots,
         rows in the tape's dtype, squared norms), cached per graph
-        version."""
+        version. Each new sample records
+        its pivot count, real and padded to a power of two, in
+        `build_stats["pivots"]`."""
         g = self.graph
         if self._pivot_cache is None or self._pivot_cache[0] is not g:
-            self._pivot_cache = (g, *pivot_rows(*graph_pivots(g, min_pivots)))
+            slots, rows = graph_pivots(g, min_pivots)
+            self._pivot_cache = (g, *pivot_rows(slots, rows))
+            if slots is not None:
+                self.build_stats["pivots"] = {"real": int((slots >= 0).sum()),
+                                              "padded": int(slots.shape[0])}
         return self._pivot_cache[1:]
 
     def norms(self):

@@ -10,7 +10,9 @@ beam search whatever ef is. Two passes:
   2. `repair_connectivity`: for every unreachable node, find its nearest
      reachable anchor by brute force (`bruteforce_topk`, kernel K3 on the
      card) and splice a bridge edge into the last adjacency slots of both
-     endpoints. Reachability runs as gather sweeps over a capped reverse
+     endpoints, where the row does not list the other end already (the
+     JAX package writes it whatever the row holds, and so can list an id
+     twice in a row). Reachability runs as gather sweeps over a capped reverse
      adjacency, which can only under-report reach (erring toward harmless
      extra bridges).
 
@@ -97,7 +99,9 @@ def repair_connectivity(
     intra-component edges spread reachability), finds each one's nearest
     anchor among a strided sample (at most 65,536) of the reached set, and
     writes a bidirectional bridge into the tail adjacency slots of both
-    endpoints. Sweeps resume from the bridged nodes."""
+    endpoints, each half where its row does not list the other end
+    already, so no row lists an id twice. Sweeps resume from the bridged
+    nodes."""
     entry = int(graph.entry)
     if entry < 0:
         return graph, 0
@@ -154,12 +158,18 @@ def repair_connectivity(
             adj = adj.clone()
         ut = torch.from_numpy(u.astype(np.int64)).to(dev)
         rt = torch.from_numpy(r.astype(np.int64)).to(dev)
-        adj[ut, last] = rt.to(torch.int32)
+        # a bridge is written only where its row does not list the other
+        # end yet (u's row often lists its nearest anchor already): a row
+        # lists an id at most once, which the search's pools rely on
+        new = ~(adj[ut] == rt[:, None]).any(1)
+        adj[ut[new], last] = rt[new].to(torch.int32)
         # reverse bridges spread over the last few slots (many dark nodes
         # often share one nearest anchor)
         col = last - (u % spread)
-        keep = _last_of_each(r * config.m0 + col)
-        adj[rt[keep], torch.from_numpy(col[keep]).to(dev)] = ut[keep].to(torch.int32)
+        keep = torch.from_numpy(_last_of_each(r * config.m0 + col)).to(dev)
+        rk, uk, ck = rt[keep], ut[keep], torch.from_numpy(col).to(dev)[keep]
+        new = ~(adj[rk] == uk[:, None]).any(1)
+        adj[rk[new], ck[new]] = uk[new].to(torch.int32)
         # the reverse bridge r -> u makes every u reachable: mark them and
         # resume the sweeps
         reached_d = reached_d.clone()

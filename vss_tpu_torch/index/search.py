@@ -45,19 +45,21 @@ product of the queries and the pivots and one launch of the
 `pivot_seeds` kernel (`csrc/seeds.cu`): the metric epilogue, the
 padding mask, the stable k smallest, the slot map and each seed's
 distance (kernel K1's code) in one pass over the product, no host sync.
-Over an int8 or bf16 tape the product is one launch of the
-`pivot_product` kernel (`csrc/pivots.cu`: the pivots' tape rows on the
-tensor cores against each f32 query split exactly into three bf16
-planes, `split_planes`); over an f32 tape, or at a width its plan
-refuses, `torch.matmul` in f32. Its plain version, and what runs for CPU
-tensors, is `pivot_seeds` followed by K1's plain version. The rerank
-gather goes through K5.
+Over an int8 or bf16 tape the product is the `pivot_product` kernel
+(`csrc/pivots.cu`: the pivots' tape rows on the tensor cores against
+each f32 query split exactly into three bf16 planes, `split_planes`; one
+launch, or one a column group for rows past 1,088 int8 / 1,024 bf16
+values); over an f32 tape, `torch.matmul` in f32. The product is the
+span `vss.search.product` inside `vss.search.seed`. Its plain version,
+and what runs for CPU tensors, is `pivot_seeds` followed by K1's plain
+version. The rerank gather goes through K5.
 
 `hnsw_search` records its phases as the spans `vss.search.seed`, `.beam`
 and `.rerank` while the torch profiler runs (`utils/trace.py`).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -98,12 +100,8 @@ _SEEDS = csrc.register(csrc.Kernel(
 
 _PIVOTS = csrc.register(csrc.Kernel(
     "pivot_product", "pivots", "vss_pivot_product",
-    [csrc.PTR] * 4 + [csrc.I32] * 4,
+    [csrc.PTR] * 4 + [csrc.I32] * 4 + [ctypes.POINTER(ctypes.c_int)],
 ))
-# the widest rows of each tape dtype that `csrc/pivots.cu`'s plan fits in
-# an H100 block's shared memory (32 queries' three bf16 planes beside the
-# ring); the emulated tests hold this table to the plan
-_PIVOT_PRODUCT_MAX_D = {torch.int8: 1088, torch.bfloat16: 1024}
 
 
 def _descent_iters(config: HNSWConfig, max_iters: int) -> int:
@@ -568,7 +566,8 @@ def pivot_seeds(
     `n_seeds` nearest pivots per query seed the base beam. The TPU's
     approximate top-k is exact top-k here."""
     pv = pivot_vecs.float()
-    dots = q @ pv.T
+    with span("vss.search.product"):
+        dots = q @ pv.T
     qn = (q * q).sum(-1, keepdim=True) if q_norms is None else q_norms[:, None]
     pn = (pv * pv).sum(-1)[None, :]
     d_qp = _epilogue(dots, qn, pn, Metric.parse(config.metric))
@@ -618,19 +617,19 @@ def scored_pivot_seeds(
     if pn is None:
         pv = pivot_vecs.float()
         pn = (pv * pv).sum(-1)
-    if pivot_product_takes(graph.vectors.dtype, q.shape[1]):
-        dots = pivot_product(q, pivot_vecs.to(graph.vectors.dtype), pivot_slots)
-    else:
-        dots = q @ pivot_vecs.float().T
+    with span("vss.search.product"):
+        if pivot_product_takes(graph.vectors.dtype):
+            dots = pivot_product(q, pivot_vecs.to(graph.vectors.dtype), pivot_slots)
+        else:
+            dots = q @ pivot_vecs.float().T
     return _pivot_seeds_launch(dots, qn, pn, pivot_slots, graph.vectors, q, config.metric, k)
 
 
-def pivot_product_takes(dtype, d: int) -> bool:
-    """Whether `pivot_product` takes a tape of `dtype` rows of d values: int8
-    or bf16 (exact in bf16; an f32 tape's rows are not), at a width its
-    plan fits (`_PIVOT_PRODUCT_MAX_D`: up to 1,088 values at int8, 1,024 at
-    bf16)."""
-    return 0 < d <= _PIVOT_PRODUCT_MAX_D.get(dtype, 0)
+def pivot_product_takes(dtype) -> bool:
+    """Whether `pivot_product` takes a tape of `dtype` rows: int8 or bf16
+    (exact in bf16; an f32 tape's rows are not), at every width (column
+    groups past 1,088 values at int8, 1,024 at bf16)."""
+    return dtype in (torch.int8, torch.bfloat16)
 
 
 def _cut_bf16(v: torch.Tensor) -> torch.Tensor:
@@ -691,18 +690,18 @@ def pivot_product(q: torch.Tensor, rows: torch.Tensor, pivot_slots: torch.Tensor
     """dots [B, P] f32: each f32 query q [B, d] against each pivot's row,
     0 where its slot is -1 (for finite queries). `rows` [P, d] are the
     pivots' rows as the tape stores them, int8 or bf16 (`graph_pivots`
-    gathers them); widths `pivot_product_takes` refuses raise. CUDA
-    tensors: one launch of the `pivot_product` kernel (`csrc/pivots.cu`);
-    CPU tensors: `_pivot_product_plain`."""
+    gathers them); other dtypes raise. CUDA tensors: one launch of the
+    `pivot_product` kernel (`csrc/pivots.cu`) a column group (one group up
+    to 1,088 values at int8, 1,024 at bf16); CPU tensors:
+    `_pivot_product_plain`."""
     B, d = q.shape if q.dim() == 2 else (-1, -1)
     P = pivot_slots.shape[0] if pivot_slots.dim() == 1 else -1
     if q.dtype != torch.float32 or B < 0 or P < 0 or rows.shape != (P, d) \
-            or not pivot_product_takes(rows.dtype, d) or P >= 2 ** 31:
+            or d == 0 or not pivot_product_takes(rows.dtype) or P >= 2 ** 31:
         raise ValueError(f"pivot_product: queries {tuple(q.shape)} {q.dtype}, rows "
                          f"{tuple(rows.shape)} {rows.dtype}, slots "
                          f"{tuple(pivot_slots.shape)}: takes f32 [B, d] queries, "
-                         f"[P, d] int8 or bf16 rows of d <= 1,088 (int8) / 1,024 (bf16) values "
-                         f"and [P] slots")
+                         f"[P, d] int8 or bf16 rows of d > 0 values and [P] slots")
     if q.device.type == "cpu":
         return _pivot_product_plain(q, rows, pivot_slots)
     out = torch.empty((B, P), dtype=torch.float32, device=q.device)
@@ -711,8 +710,10 @@ def pivot_product(q: torch.Tensor, rows: torch.Tensor, pivot_slots: torch.Tensor
     q = csrc.operand(q)
     rows = csrc.operand(rows)
     slots = csrc.operand(pivot_slots.to(torch.int32))
+    launched = ctypes.c_int(0)
     _PIVOTS.launch([q, rows, slots, out], q.data_ptr(), rows.data_ptr(), slots.data_ptr(),
-                   out.data_ptr(), B, P, d, csrc.dtype_code(rows.dtype))
+                   out.data_ptr(), B, P, d, csrc.dtype_code(rows.dtype), ctypes.byref(launched),
+                   launched=launched)
     return out
 
 
