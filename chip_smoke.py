@@ -10,6 +10,7 @@
     python3 chip_smoke.py --pivot-product-only  # the pivot_product kernel alone
     python3 chip_smoke.py --witnesses-only  # the repeated-row witnesses alone
     python3 chip_smoke.py --rescore-only   # the rescore_topk kernel alone
+    python3 chip_smoke.py --rerank-only    # the rerank_pool kernel alone
     python3 chip_smoke.py --k2-only        # K2 (native_segmin) alone
     python3 chip_smoke.py --k2-only --k2-parent DIR  # and DIR's K2 in turns
 
@@ -76,8 +77,13 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     within the tolerance below with ids equal up to near-ties; bit for bit
     on integer-valued queries and rerank rows; a control (phase C on
     bf16-rounded rerank rows) that must break the tolerance; one launch
-    and no host sync. K1, K5, the descent kernel, the select kernels,
-    pivot_seeds and rescore_topk are timed by their device time from the
+    and no host sync; then the rerank_pool kernel (`check_rerank_pool`: the
+    graph search's f32 rerank) against its plain version at the gist,
+    openai, one-query and phase 4's two graph-path shapes and at pools of
+    10,000, bit for bit on integer values, one launch and no host sync,
+    and in a gist-shaped `HNSWIndex.search`. K1, K5, the
+    descent kernel, the select kernels, pivot_seeds, rescore_topk and
+    rerank_pool are timed by their device time from the
     profiler's trace, since their wrappers take longer on the host than
     the kernels on the card;
  4. build and serve the flagship: a SIFT-like synthetic corpus of
@@ -91,8 +97,8 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     over the first 65,536 rows it runs K4 and the plain selection, whose
     first 256 must equal pairwise_topk's at k=256; `scan_search` (K2,
     then one rescore_topk launch per batch) and the graph `search` at
-    ef=64 (one pivot_seeds launch and one beam_search launch per batch, K5
-    for the rerank gather) are scored by recall, and so is a search at
+    ef=64 (one pivot_seeds, one beam_search and one rerank_pool launch per
+    batch) are scored by recall, and so is a search at
     ef=320 seeded from 300 pivots, past select_k's widest k, where the
     seeding is the route (`pivot_seeds` with the stable sort, then K1).
     Launch counters are zeroed just before each path and read just after
@@ -103,8 +109,10 @@ Phases, each of which fails the run (nonzero exit) on any fault:
     the profiler; the scans again with the plain phases B and C
     (`plain_rescore`) before and rescore_topk after, ids equal up to
     near-ties and recall equal; the graph search the same way with the
-    parent's seeding (`seeds_route`) before and pivot_seeds after; the
-    k=100 oracle with
+    parent's seeding (`seeds_route`) before and pivot_seeds after; both
+    graph paths (ef=64 and ef=320) with the plain rerank (`plain_rerank`)
+    before and rerank_pool after, ids equal up to near-ties and recall
+    equal; the k=100 oracle with
     the K4 route before and pairwise_topk after, with the peak memory of
     a batch of each. Then the forward call of `vss_tpu_torch.entry.entry()`
     (64 queries, k=10, ef=64 over a host-built 1,024-row graph: one
@@ -3320,6 +3328,221 @@ def scan_agree(vecs: np.ndarray, queries: np.ndarray):
 
 
 # ----------------------------------------------------------------------
+# the graph search's rerank (rerank_pool)
+
+# check_rerank_pool's shapes: name, queries, pool (ef), k, d, metric and
+# the tape's rows: the gist and openai cells' calls, one query of sift's
+# width (the held-back q1 cell's), and phase 4's two graph paths over the
+# sift-like index (`graph_path` at ef=EF, `wide_path` at ef=EF_WIDE)
+RERANK_SHAPES = (("gist", 512, 64, 10, 960, "l2sq", 1_000_000),
+                 ("openai", 512, 64, 10, 1536, "cosine", 990_000),
+                 ("q1", 1, 64, 10, 128, "l2sq", 1_000_000),
+                 ("sift", 512, 64, 10, 128, "l2sq", 1_000_000),
+                 ("sift wide", 512, 320, 10, 128, "l2sq", 1_000_000))
+
+
+def rerank_world(seed: int, B: int, ef: int, d: int, rows: int, dev, integer=False):
+    """(q [B, d] f32, pool ids [B, ef] i32, rerank tape [rows, d] f32), made
+    on the card from `seed`: a tape of N(0, 30^2) values (integers in
+    [-40, 40] with `integer`, every sum exact), pools of random rows with
+    the last 5 slots -1 in every third query, each query near its pool's
+    first row, one pool row repeated at a later position in every query."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if integer:
+        tape = torch.randint(-40, 41, (rows, d), generator=g, device=dev).float()
+        noise = torch.randint(-5, 6, (B, d), generator=g, device=dev).float()
+    else:
+        tape = torch.randn((rows, d), generator=g, device=dev) * 30.0
+        noise = torch.randn((B, d), generator=g, device=dev) * 10.0
+    ids = torch.randint(0, rows, (B, ef), generator=g, device=dev, dtype=torch.int32)
+    ids[:, ef // 2] = ids[:, 1]
+    ids[::3, ef - 5:] = -1
+    q = (tape[ids[:, 0].long()] + noise).contiguous()
+    return q, ids, tape
+
+
+def rerank_verdict(got, want, q, ids, tape, metric: str) -> dict:
+    """Kernel (`got`) against plain version (`want`) of rerank_pool on the
+    same inputs, within `rescore_verdict`'s tolerance: ids -1 exactly where
+    the distance is not finite, in the same places, distances within
+    REL_TOL of the magnitude of their terms (`dist_scale` of the queries and
+    the pool's rows), and ids equal except at a near-tie (both ids' float64
+    distances within that tolerance). Returns the counts and `ok`."""
+    gd, gi = got
+    wd, wi = want
+    out = {"rows": int(gd.shape[0]), "bit_equal": bool(bit_equal(gd, wd) and torch.equal(gi, wi))}
+    if gd.shape != wd.shape or gi.shape != wi.shape:
+        return dict(out, ok=False, why=f"shapes {tuple(gd.shape)} != {tuple(wd.shape)}")
+    fin = torch.isfinite(wd)
+    if not torch.equal(torch.isfinite(gd), fin) or not torch.equal(gi < 0, ~fin):
+        return dict(out, ok=False, why="finite in one version only, or an id -1 at a finite "
+                                       "distance")
+    pool = tape[torch.unique(ids[ids >= 0]).long()]
+    tol = REL_TOL * dist_scale(q, pool, metric)
+    err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    out.update(max_abs_err=err, tol=tol)
+    if not err <= tol:
+        return dict(out, ok=False, why=f"max_abs_err {err:.6g} over tol {tol:.6g}")
+    bad = near = 0
+    for b, j in (gi != wi).nonzero().tolist():
+        a, w = int(gi[b, j]), int(wi[b, j])
+        t = true_dists(q[b:b + 1].cpu().numpy(), tape[[a, w]].cpu().numpy()[None], metric)[0]
+        if abs(t[0] - t[1]) <= tol:
+            near += 1
+        else:
+            bad += 1
+    out.update(ids_differ=near + bad, near_ties=near, not_near=bad)
+    return dict(out, ok=bad == 0, why=f"{bad} ids differ at no near-tie" if bad else "")
+
+
+def rerank_variant(label, q, ids, tape, k: int, metric: str, entry, exact=False) -> dict:
+    """The rerank_pool kernel against its plain version (`_rerank_pool_plain`,
+    the torch ops the search ran before it) on the card: `rerank_verdict`'s
+    tolerance, or with `exact` (integer-valued inputs: every sum exact) ids
+    equal and distances bit for bit (cosine: within the tolerance where
+    PyTorch's sqrt or division rounds otherwise)."""
+    from vss_tpu_torch.index import search as sr
+
+    qn = (q * q).sum(-1)
+    got = sr.rerank_pool(q, ids, tape, metric, k, entry, qn)
+    want = sr._rerank_pool_plain(q, ids, tape, sr.Metric.parse(metric), k, entry, qn)
+    v = rerank_verdict(got, want, q, ids, tape, metric)
+    if exact and not v["bit_equal"] and (metric != "cosine" or not v["ok"]):
+        fail(f"rerank_pool {label}: not bit for bit on exact sums ({v})")
+    if not v["ok"]:
+        fail(f"rerank_pool {label}: {v['why']} ({v})")
+    log(f"  {label}: {q.shape[0]} queries, pool {ids.shape[1]}, k={k}, {metric}, "
+        f"{str(tape.dtype)[6:]} tape of {tape.shape[0]} x {tape.shape[1]}: "
+        f"{'bit for bit' if v['bit_equal'] else 'within tolerance'} (max_abs_err "
+        f"{v.get('max_abs_err', 0):.6g}, tol {v.get('tol', 0):.6g}, ids at near-ties "
+        f"{v.get('near_ties', 0)})")
+    return v
+
+
+@contextlib.contextmanager
+def plain_rerank():
+    """The graph search's rerank by its plain version while in place:
+    `rerank_pool` as `_rerank_pool_plain` (K5's gather, the torch ops and
+    the stable sort), as the port reranked before the rerank_pool kernel."""
+    from vss_tpu_torch.index import search as sr
+
+    real = sr.rerank_pool
+
+    def plain(q, ids, rerank_tape, metric, k, entry, q_norms=None):
+        return sr._rerank_pool_plain(q, ids, rerank_tape, sr.Metric.parse(metric), k, entry,
+                                     q_norms)
+
+    sr.rerank_pool = plain
+    try:
+        yield
+    finally:
+        sr.rerank_pool = real
+
+
+def check_rerank_pool(dev, out_dir: str, read_ns: float) -> dict:
+    """The rerank_pool kernel against its plain version on the card at the
+    gist cell's call (512 x 64 x 960 l2sq), the openai cell's (512 x 64 x
+    1,536 cosine), one query of sift's width (1 x 64 x 128) and phase 4's
+    two graph paths (512 x 64 and 512 x 320 x 128 l2sq), each on a tape of
+    the cell's rows: within the tolerance on real values, bit for bit on
+    integer values; bf16 tapes, ip, pools of 4,096 and 10,000 (k up to
+    5,000: the kernel's chunks and rounds) and an empty graph besides; one
+    launch and no host sync at each shape; the kernel's
+    device time beside its byte bound (each query's pool rows read once,
+    with the queries, ids and outputs) or, at one query, its floor (the
+    pool's ids, then its rows: two dependent reads of `read_ns`), and
+    beside the torch route's (the plain version, CUDA events); and a
+    gist-shaped `HNSWIndex.search` (512 queries, 960-d l2sq, int8 tape with
+    its f32 rerank tape) counting one rerank_pool launch a call, its
+    answers the plain rerank's."""
+    from vss_tpu_torch import HNSWConfig, HNSWIndex, csrc
+    from vss_tpu_torch.index import search as sr
+
+    log("rerank_pool")
+    entry = torch.zeros((), dtype=torch.int32, device=dev)
+    shapes, errs = [], []
+    for i, (name, B, ef, k, d, metric, rows) in enumerate(RERANK_SHAPES):
+        q, ids, tape = rerank_world(1000 + i, B, ef, d, rows, dev)
+        label = f"{name}: {B} x {ef} x {d}"
+        errs.append(rerank_variant(label, q, ids, tape, k, metric, entry)["max_abs_err"])
+        rerank_variant(f"{label}, bf16 tape", q, ids, tape.to(torch.bfloat16), k, metric, entry)
+        rerank_variant(f"{label}, ip", q, ids, tape, k, "ip", entry)
+        rerank_variant(f"{label}, k = ef", q, ids, tape, ef, metric, entry)
+        rerank_variant(f"{label}, an empty graph", q, ids, tape, k, metric,
+                       torch.full((), -1, dtype=torch.int32, device=dev))
+        one_launch_no_sync(lambda: sr.rerank_pool(q, ids, tape, metric, k, entry), "rerank_pool")
+        qn = (q * q).sum(-1)
+        ms = device_ms(lambda: sr.rerank_pool(q, ids, tape, metric, k, entry, qn), 50,
+                       "rerank_pool_kernel", out_dir)
+        event_ms = cuda_ms(lambda: sr.rerank_pool(q, ids, tape, metric, k, entry, qn), 50)
+        plain_ms = cuda_ms(lambda: sr._rerank_pool_plain(q, ids, tape, sr.Metric.parse(metric),
+                                                          k, entry, qn), 20)
+        bytes_moved = B * ef * d * 4 + B * d * 4 + B * 4 + B * ef * 4 + B * k * 8
+        b_ms, b_by = bound(bytes_moved, 3.0 * B * ef * d, "f32")
+        floor_ms = 2 * read_ns / 1e6
+        log(f"  {label} {metric}: kernel {ms:.4f} ms device ({event_ms:.4f} ms between CUDA "
+            f"events), bound {b_ms:.4f} ms ({b_by}: {bytes_moved / 1e6:.1f} MB, each query's rows once), "
+            f"floor {floor_ms:.4f} ms (two dependent reads), the torch route {plain_ms:.4f} ms")
+        shapes.append(dict(label=f"{label} {metric}", ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms))
+        qi, idi, ti = rerank_world(2000 + i, B, ef, d, min(rows, 100_000), dev, integer=True)
+        for met in ("l2sq", "ip", "cosine"):
+            rerank_variant(f"{name} integer-valued, {met}", qi, idi, ti, k, met, entry, exact=True)
+        del q, ids, tape, qi, idi, ti
+        torch.cuda.empty_cache()
+    # wide pools: 4,096 positions a query (one chunk of the kernel's sort),
+    # and 10,000 (three chunks) with k past a chunk (two rounds of outputs)
+    q, ids, tape = rerank_world(3000, 8, 4096, 128, 100_000, dev)
+    rerank_variant("8 x 4,096 x 128 l2sq", q, ids, tape, 100, "l2sq", entry)
+    q, ids, tape = rerank_world(3001, 8, 10_000, 128, 100_000, dev)
+    for kw in (100, 5_000):
+        rerank_variant(f"8 x 10,000 x 128 l2sq, k={kw}", q, ids, tape, kw, "l2sq", entry)
+        one_launch_no_sync(lambda: sr.rerank_pool(q, ids, tape, "l2sq", kw, entry), "rerank_pool")
+    qi, idi, ti = rerank_world(3002, 4, 10_000, 128, 100_000, dev, integer=True)
+    rerank_variant("4 x 10,000 x 128 integer-valued, k=5,000", qi, idi, ti, 5_000, "l2sq", entry,
+                   exact=True)
+    # a gist-shaped index: one rerank_pool launch a search call, its
+    # answers the plain rerank's
+    rng = np.random.default_rng(4)
+    vecs = rng.normal(size=(20_000, 960)).astype(np.float32) * 30
+    idx = HNSWIndex.build(vecs, HNSWConfig(dims=960, metric="l2sq", storage_dtype="int8"),
+                          device=dev)
+    qb = torch.from_numpy(vecs[:BATCH] + rng.normal(size=(BATCH, 960)).astype(np.float32)).to(dev)
+    idx.search(qb, K, ef=EF)
+    before = {n: kk.launches for n, kk in csrc.KERNELS.items()}
+    got = idx.search(qb, K, ef=EF)
+    ran = {n: kk.launches - before[n] for n, kk in csrc.KERNELS.items()
+           if kk.launches != before[n]}
+    if ran.get("rerank_pool") != 1 or ran.get("gather_rows"):
+        fail(f"rerank_pool: a gist-shaped search launched {ran}, not one rerank_pool and no "
+             f"gather_rows")
+    with plain_rerank():
+        want = idx.search(qb, K, ef=EF)
+    gd, gi, wd, wi = (t.cpu().numpy() for t in (*got, *want))
+    fin = np.isfinite(wd)
+    if not np.array_equal(np.isfinite(gd), fin):
+        fail("rerank_pool: the gist-shaped search's finite distances sit elsewhere than the "
+             "plain rerank's")
+    tol = REL_TOL * float(np.abs(wd[fin]).max())
+    err = float(np.abs(gd[fin] - wd[fin]).max())
+    near = bad = 0
+    qh = qb.cpu().numpy()
+    for b, j in zip(*np.nonzero(gi != wi)):
+        t = true_dists(qh[b:b + 1], vecs[[int(gi[b, j]), int(wi[b, j])]][None], "l2sq")[0]
+        near, bad = (near + 1, bad) if abs(t[0] - t[1]) <= tol else (near, bad + 1)
+    if err > tol or bad:
+        fail(f"rerank_pool: the gist-shaped search differs from the plain rerank's (max_abs_err "
+             f"{err}, tol {tol}, {bad} ids at no near-tie)")
+    log(f"  gist-shaped HNSWIndex.search ({idx.count} x 960 l2sq, int8 with an f32 rerank tape, "
+        f"{BATCH} queries, k={K}, ef={EF}): launches {ran}; against the plain rerank's answers "
+        f"max_abs_err {err:.6g} (tol {tol:.6g}), ids at near-ties {near}")
+    del idx
+    return dict(ms=shapes[0]["ms"], plain_ms=shapes[0]["plain_ms"],
+                bound_ms=shapes[0]["bound_ms"], bound_by=shapes[0]["bound_by"], library_ms=None,
+                max_abs_err=errs[0], shapes=shapes, search_launches=ran)
+
+
+# ----------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -3741,7 +3964,7 @@ def database_phase(seed, dev, smi, vecs, queries, centers, launches, out_dir) ->
     explain(db, join_sql, "HNSW_INDEX_JOIN")
     db.sql(join_sql)  # warm-up
     res = step("hnsw_index_join", lambda: db.sql(join_sql))
-    need("hnsw_index_join", "beam_search", "pivot_seeds", "gather_rows")
+    need("hnsw_index_join", "beam_search", "pivot_seeds", "rerank_pool")
     join_ms = steps["hnsw_index_join"]["seconds"] * 1e3
     j_ids, j_d = join_ids(res, "id", "qid", nq, K, "dist")
     _, want = index.search(queries, K, ef=EF)
@@ -4047,7 +4270,7 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
         return batched_ids(lambda qb: bruteforce_topk(qb, xs, K, "l2sq", valid_mask=valid,
                                                       device=dev), q_all)
 
-    graph_kernels = ("beam_search", "pivot_seeds", "gather_rows")
+    graph_kernels = ("beam_search", "pivot_seeds", "rerank_pool")
 
     # ---- the sharded bulk build
     idx = step("build", lambda: ShardedHNSWIndex.build(vecs, cfg, mesh))
@@ -4135,7 +4358,8 @@ def sharded_phase(seed, dev, smi, vecs, queries, truth, centers, launches, out_d
     wrng = np.random.default_rng(seed + 4)
     new_vecs, _, _ = sift_like(wrng, N_INSERT, 0, D, centers)
     step(f"insert {N_INSERT} rows", lambda: idx.insert(new_vecs, np.arange(N, N + N_INSERT)))
-    need(f"insert {N_INSERT} rows", *graph_kernels, "greedy_descent", "select_neighbors")
+    need(f"insert {N_INSERT} rows", "beam_search", "pivot_seeds", "gather_rows", "greedy_descent",
+         "select_neighbors")
     n1 = N + N_INSERT
     if idx.count != n1 or sum(idx.next_slot) != n1:
         fail(f"after the insert: {idx.count} rows, next slots {idx.next_slot}")
@@ -4726,6 +4950,11 @@ def main() -> int:
                          "on the corpus quantized to int8, then scan_topk at k=10 and 100 with "
                          "the plain phases B and C and with the kernel, without the index "
                          "build; prints the kernel's entry and no result line")
+    ap.add_argument("--rerank-only", action="store_true",
+                    help="build every kernel and run check_rerank_pool alone: the graph "
+                         "search's rerank at the gist, openai and one-query shapes on tapes "
+                         "made on the card, and a gist-shaped HNSWIndex.search; prints the "
+                         "kernel's entry and no result line")
     ap.add_argument("--gist", action="store_true",
                     help="also build and search the 1,000,000 x 960 cosine arm (made on the "
                          "card; adds minutes)")
@@ -4776,6 +5005,14 @@ def main() -> int:
 
     if args.witnesses_only:
         log(json.dumps({"witnesses": check_witnesses(dev)}))
+        return 0
+    if args.rerank_only:
+        log(smi)
+        entry = check_rerank_pool(dev, args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces"),
+                                  dependent_read_ns(dev))
+        entry["launches"] = csrc.KERNELS["rerank_pool"].launches
+        log(smi)
+        log(json.dumps({"rerank_pool": entry}))
         return 0
     if args.pivot_product_only:
         log(smi)
@@ -4921,6 +5158,8 @@ def main() -> int:
     results["pivot_product"] = check_pivot_product(dev, out_dir)
     results["rescore_topk"] = check_rescore(dev, idx.graph.vectors, idx.norms(), idx.graph.valid,
                                             idx.rerank_tape, q_scaled, krng, out_dir)
+    results["rerank_pool"] = check_rerank_pool(dev, out_dir,
+                                                results["beam_search"]["dependent_read_ns"])
     host_us = host_us_per_call(dev, idx.graph.vectors, idx.graph.adj0, q_scaled)
     torch.cuda.synchronize()
 
@@ -5052,6 +5291,16 @@ def main() -> int:
     before_vs_after[graph_path] = before_after(
         graph_path, lambda qb: idx.search(qb, K, ef=EF), q_all, out_dir, before_fn=parent_search,
         agree=graph_agree(lambda qb: idx.search(qb, K, ef=EF), q_all))
+    # the graph paths' rerank: the plain version (K5's gather, the torch
+    # ops and the stable sort) before, the rerank_pool kernel after, on the
+    # same pools (the seeding and the beam are the same on both sides)
+    for label, fn, truth in ((graph_path, lambda qb: idx.search(qb, K, ef=EF), gt_i),
+                             (wide_path, lambda qb: wide_seed_search(idx, qb), gt_i)):
+        with plain_rerank():  # warm the route before the turns
+            fn(q)
+        before_vs_after[f"{label}, the rerank"] = before_after(
+            f"{label}, the rerank", fn, q_all, out_dir, before_ctx=plain_rerank,
+            agree=scan_agree(vecs, queries), truth=truth)
     # the k=100 oracle: the parent's route (K4 blocks and select_k, composed
     # here) before, pairwise_topk after
     before_vs_after["oracle k=100"] = before_after(
@@ -5085,10 +5334,10 @@ def main() -> int:
               "native_segmin": ["scan_search k=10"], "beam_search": [graph_path, wide_path],
               "rescore_topk": ["scan_search k=10", "scan_search k=100"],
               "select_k": ["oracle k=10", "scan_search k=10", "scan_search k=100"],
-              # the seeding and the rerank gather of the graph search; K1 on
-              # its own only past select_k's widest k
+              # the seeding and the rerank of the graph search; K1 on its
+              # own only past select_k's widest k
               "pivot_seeds": [graph_path], "pivot_product": [graph_path],
-              "gather_rows": [graph_path],
+              "rerank_pool": [graph_path, wide_path],
               "gather_distances": [wide_path]}
     for kname, labels in needed.items():
         for label in labels:
@@ -5100,10 +5349,14 @@ def main() -> int:
                  f"{NQ // BATCH} batches, not once a batch")
     if per_path[graph_path]["gather_distances"] or per_path[graph_path]["select_k"]:
         fail(f"{graph_path} launched gather_distances or select_k: its seeding is pivot_seeds")
+    if per_path[graph_path]["rerank_pool"] != NQ // BATCH or per_path[graph_path]["gather_rows"]:
+        fail(f"{graph_path}: rerank_pool launched {per_path[graph_path]['rerank_pool']} times in "
+             f"{NQ // BATCH} batches, gather_rows {per_path[graph_path]['gather_rows']}: not one "
+             f"rerank_pool a batch and no gather")
     log(f"{graph_path}, {NQ // BATCH} batches: beam_search launched "
         f"{per_path[graph_path]['beam_search']} times, pivot_seeds "
-        f"{per_path[graph_path]['pivot_seeds']}, gather_rows "
-        f"{per_path[graph_path]['gather_rows']}, gather_distances 0")
+        f"{per_path[graph_path]['pivot_seeds']}, rerank_pool "
+        f"{per_path[graph_path]['rerank_pool']}, gather_rows 0, gather_distances 0")
     summary["entry"] = entry_call(dev, launches, out_dir)
 
     # ---- phase 5: the write path, on the same index
@@ -5162,6 +5415,10 @@ def main() -> int:
         "rescore_topk": ("vss_tpu_torch/csrc/rescore.cu",
                          "vss_tpu/ops/scan.py:216-321 (the XLA after K2: _rescore_native, "
                          "_gather_segment_blocks, _rescore_native_block)"),
+        "rerank_pool": ("vss_tpu_torch/csrc/rerank.cu",
+                        "vss_tpu/index/search.py:537-552 (the XLA after K5: the pool's rows "
+                        "taken from the rerank tape, the direct difference or "
+                        "gathered_distances, the mask, the stable sort, the k cut)"),
     }
     table = [
         {"name": kname, "route": "cuda", "source": meta[kname][0], "replaces": meta[kname][1],
@@ -5169,7 +5426,7 @@ def main() -> int:
         for kname in ("gather_distances", "native_segmin", "scan_segmin", "pairwise",
                       "pairwise_topk", "gather_rows", "beam_search", "greedy_descent",
                       "select_neighbors", "select_k", "pivot_seeds", "pivot_product",
-                      "rescore_topk")
+                      "rescore_topk", "rerank_pool")
     ]
     log(smi)
     log(json.dumps({"kernels": table}))

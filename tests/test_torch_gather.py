@@ -89,8 +89,8 @@ def test_kernels_refuse_cpu_tensors_and_count_nothing():
         assert kernel.launches == before
     assert sorted(csrc.KERNELS) == [
         "beam_search", "gather_distances", "gather_rows", "greedy_descent", "native_segmin",
-        "pairwise", "pairwise_topk", "pivot_product", "pivot_seeds", "rescore_topk",
-        "scan_segmin", "select_k", "select_neighbors"]
+        "pairwise", "pairwise_topk", "pivot_product", "pivot_seeds", "rerank_pool",
+        "rescore_topk", "scan_segmin", "select_k", "select_neighbors"]
 
 
 def _table(rng, dtype, n, row):

@@ -196,3 +196,35 @@ def test_search_empty_graph():
     jd, ji = jsearch.hnsw_search(_jax_graph(arrays), cfg, jnp.asarray(q), k=4)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     assert (ti.numpy() == -1).all() and not np.isfinite(td.numpy()).any()
+
+
+def test_search_rerank_nan_rows_depart_from_jax(built):
+    """Where a rerank row holds a NaN, the JAX package keeps its NaN
+    distance and its id, sorted after every +inf; the port scores it +inf
+    with id -1 (the rerank_pool kernel's contract, and `rescore_topk`'s),
+    in the place of the -1 ids at the end. Every other answer is the
+    same."""
+    vecs, arrays, q = built
+    scale = float(np.abs(vecs).max()) / 127.0
+    arrays = dict(arrays)
+    cap = arrays["vectors"].shape[0]
+    scaled = np.zeros((cap, D), np.float32)
+    scaled[: vecs.shape[0]] = vecs / scale
+    arrays["vectors"] = np.clip(np.round(scaled), -127, 127).astype(np.int8)
+    kw = dict(storage="int8", pivots=True, k=64, ef=64, assume_all_valid=True)
+    _, (_, ti, _) = _run_both(arrays, q / scale, rerank=scaled, **kw)
+    nan_rows = np.unique(ti[:4, :3])
+    scaled[nan_rows, 7] = np.nan
+    (jd, ji, jst), (td, ti, tst) = _run_both(arrays, q / scale, rerank=scaled, **kw)
+    assert tst == jst
+    jnan = np.isnan(jd)
+    assert jnan[:4].sum(1).min() >= 3 and (ji[jnan] >= 0).all()
+    assert not np.isnan(td).any()
+    # the JAX package's NaNs sit last, the port's +inf / -1 in their place
+    fin = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(td), fin)
+    np.testing.assert_array_equal(ti[~fin], -1)
+    assert np.isposinf(td[~fin]).all()
+    np.testing.assert_array_equal(np.sort(np.where(fin, ti, -1), 1),
+                                  np.sort(np.where(fin, ji, -1), 1))
+    np.testing.assert_allclose(td[fin], jd[fin], rtol=RTOL, atol=ATOL)

@@ -43,6 +43,7 @@ SOURCES = {
     "seeds": "seeds.cu",
     "pivots": "pivots.cu",
     "rescore": "rescore.cu",
+    "rerank": "rerank.cu",
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }

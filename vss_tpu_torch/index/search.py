@@ -52,7 +52,14 @@ launch, or one a column group for rows past 1,088 int8 / 1,024 bf16
 values); over an f32 tape, `torch.matmul` in f32. The product is the
 span `vss.search.product` inside `vss.search.seed`. Its plain version,
 and what runs for CPU tensors, is `pivot_seeds` followed by K1's plain
-version. The rerank gather goes through K5.
+version.
+
+The rerank (`rerank_pool`) is, for CUDA tensors, one launch of the
+`rerank_pool` kernel (`csrc/rerank.cu`): each query's ef-wide result pool
+rescored from the full-precision side tape by id, sorted stably and cut to
+k, the empty graph's answer read on the device. Its plain version, and what
+runs for CPU tensors, is `_rerank_pool_plain`: the rows gathered through
+K5, the torch ops and a stable sort.
 
 `hnsw_search` records its phases as the spans `vss.search.seed`, `.beam`
 and `.rerank` while the torch profiler runs (`utils/trace.py`).
@@ -72,7 +79,8 @@ from vss_tpu_torch.ops.topk import SELECT_K_MAX, _select_k_splits, _select_min_k
 from vss_tpu_torch.utils.trace import span
 
 __all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "scored_pivot_seeds",
-           "pivot_product", "split_planes", "beam_search_base", "beam_smem_bytes"]
+           "pivot_product", "split_planes", "beam_search_base", "beam_smem_bytes",
+           "rerank_pool"]
 
 _INF = float("inf")
 
@@ -101,6 +109,11 @@ _SEEDS = csrc.register(csrc.Kernel(
 _PIVOTS = csrc.register(csrc.Kernel(
     "pivot_product", "pivots", "vss_pivot_product",
     [csrc.PTR] * 4 + [csrc.I32] * 4 + [ctypes.POINTER(ctypes.c_int)],
+))
+
+_RERANK = csrc.register(csrc.Kernel(
+    "rerank_pool", "rerank", "vss_rerank_pool",
+    [csrc.PTR] * 7 + [csrc.I32, csrc.I32, csrc.I64] + [csrc.I32] * 4,
 ))
 
 
@@ -774,6 +787,77 @@ def _pivot_seeds_launch(dots, qn, pn, pivot_slots, table, q, metric, k: int,
     return seeds, seed_d
 
 
+def rerank_pool(q: torch.Tensor, ids: torch.Tensor, rerank_tape: torch.Tensor, metric,
+                k: int, entry: torch.Tensor, q_norms: Optional[torch.Tensor] = None):
+    """The graph search's exact rerank: each query's pool `ids` [B, ef]
+    (i32, -1 for an empty slot) rescored against the f32 query q [B, d]
+    from the full-precision side tape `rerank_tape` [cap, d] (l2sq by the
+    direct difference; cosine and ip through the epilogue with the squared
+    query norms `q_norms` [B], computed where None), sorted stably by
+    (distance, pool position) and cut to its first k <= ef. Returns (dists
+    [B, k] f32, ids [B, k] i32): an id -1 or a NaN distance scores +inf,
+    an id is -1 where its distance is not finite, and every slot is +inf /
+    -1 where the 0-d `entry` is below 0 (an empty graph). CUDA tensors:
+    one launch of the `rerank_pool` kernel (`csrc/rerank.cu`; an f32 or
+    bf16 tape, else ValueError); CPU tensors: `_rerank_pool_plain`."""
+    metric = Metric.parse(metric)
+    if q.device.type == "cpu":
+        return _rerank_pool_plain(q, ids, rerank_tape, metric, k, entry, q_norms)
+    return _rerank_launch(q, ids, rerank_tape, metric, k, entry, q_norms)
+
+
+def _rerank_pool_plain(q, ids, rerank_tape, metric, k: int, entry, q_norms=None):
+    """Plain version of the `rerank_pool` kernel: the pool's rows gathered
+    through K5 as f32, the direct difference (l2sq) or
+    `gathered_distances`, the masks, a stable sort and the k cut."""
+    rv = gather_rows(rerank_tape, ids).float()
+    if metric == Metric.L2SQ:
+        # direct difference form: the dot-product identity loses digits
+        # to cancellation at byte magnitudes
+        diff = q[:, None, :] - rv
+        rd = (diff * diff).sum(-1)
+    else:
+        rd = gathered_distances(q, rv, metric, None, q_norms)
+    rd = torch.where((ids >= 0) & ~rd.isnan(), rd, _INF)
+    res_d, res_i = _sort_by(rd, ids)
+    out_d = res_d[:, :k]
+    out_i = torch.where(torch.isfinite(out_d), res_i[:, :k], -1)
+    empty = entry < 0
+    return torch.where(empty, _INF, out_d), torch.where(empty, -1, out_i)
+
+
+def _rerank_launch(q, ids, rerank_tape, metric, k: int, entry, q_norms=None):
+    """One launch of the `rerank_pool` kernel (`rerank_pool`'s CUDA
+    route), after the shapes are checked."""
+    B, ef = ids.shape if ids.dim() == 2 else (-1, -1)
+    cap, d = rerank_tape.shape if rerank_tape.dim() == 2 else (-1, -1)
+    if q.dtype != torch.float32 or B < 0 or d < 1 or q.shape != (B, d) or not 1 <= k <= ef \
+            or rerank_tape.dtype not in (torch.float32, torch.bfloat16) or entry.numel() != 1 \
+            or (q_norms is not None and q_norms.shape != (B,)):
+        raise ValueError(f"rerank_pool: queries {tuple(q.shape)} {q.dtype}, pool "
+                         f"{tuple(ids.shape)}, tape {tuple(rerank_tape.shape)} "
+                         f"{rerank_tape.dtype}, k={k}: takes f32 [B, d] queries, [B, ef] "
+                         f"pools with 1 <= k <= ef and an f32 or bf16 [cap, d] tape, d >= 1")
+    dev = q.device
+    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out_d, out_i
+    if metric == Metric.COSINE and q_norms is None:
+        q_norms = (q * q).sum(-1)
+    q = csrc.operand(q)
+    ids = csrc.operand(ids.to(torch.int32))
+    rows = csrc.operand(rerank_tape)
+    entry = entry.to(torch.int32).reshape(1)
+    qn = None if q_norms is None else q_norms.float().contiguous()
+    operands = [q, ids, rows, entry, out_d, out_i] + ([] if qn is None else [qn])
+    _RERANK.launch(operands, q.data_ptr(), None if qn is None else qn.data_ptr(),
+                   ids.data_ptr(), rows.data_ptr(), entry.data_ptr(), out_d.data_ptr(),
+                   out_i.data_ptr(), B, ef, cap, d, csrc.dtype_code(rows.dtype),
+                   METRIC_IDS[metric], k)
+    return out_d, out_i
+
+
 def hnsw_search(
     graph: HNSWGraph,
     config: HNSWConfig,
@@ -802,7 +886,7 @@ def hnsw_search(
     pivot scan with `n_seeds` seeds per query (`scored_pivot_seeds`;
     `pivot_norms`, the pivots' squared norms, spares their reduction a
     batch). `rerank_tape` rescores the ef-wide result pool exactly from a
-    full-precision side tape.
+    full-precision side tape (`rerank_pool`).
     with_stats=True also returns {"iterations", "distance_evals"}.
     """
     dev = graph.device
@@ -832,19 +916,11 @@ def hnsw_search(
     with span("vss.search.rerank"):
         if rerank_tape is not None:
             # exact rescoring of the ef-wide pool against the side tape
-            rv = gather_rows(rerank_tape, res_i).float()
-            if metric == Metric.L2SQ:
-                # direct difference form: the dot-product identity loses
-                # digits to cancellation at byte magnitudes
-                diff = q[:, None, :] - rv
-                rd = (diff * diff).sum(-1)
-            else:
-                rd = gathered_distances(q, rv, metric, None, q_norms)
-            rd = torch.where(res_i >= 0, rd, _INF)
-            res_d, res_i = _sort_by(rd, res_i)
-        empty = graph.entry < 0
-        out_d = torch.where(empty, _INF, res_d[:, :k])
-        out_i = torch.where(empty, -1, res_i[:, :k])
+            out_d, out_i = rerank_pool(q, res_i, rerank_tape, metric, k, graph.entry, q_norms)
+        else:
+            empty = graph.entry < 0
+            out_d = torch.where(empty, _INF, res_d[:, :k])
+            out_i = torch.where(empty, -1, res_i[:, :k])
     if with_stats:
         return out_d, out_i, {"iterations": int(iters), "distance_evals": int(evals)}
     return out_d, out_i
