@@ -1945,17 +1945,13 @@ SELECT_K_SHAPES = [
 def capture_select_k(calls: dict):
     """Record the first `select_k` call of each (caller, shape, k, options)
     made while in place, with clones of its inputs, in `calls`; the calls
-    go on unchanged. The caller is the function that called
-    `_select_min_k` or `select_k`."""
+    go on unchanged. The caller is the function that called `select_k`."""
     from vss_tpu_torch.ops import topk
 
     real = topk.select_k
 
     def spy(d, k, valid=None, nan_as_inf=False):
-        frame = sys._getframe(1)
-        if frame.f_code.co_name == "_select_min_k":
-            frame = frame.f_back
-        site = frame.f_code.co_name
+        site = sys._getframe(1).f_code.co_name
         key = (site, tuple(d.shape), k, valid is not None, nan_as_inf)
         if key not in calls:
             calls[key] = dict(site=site, d=d.clone(), k=k, nan_as_inf=nan_as_inf,
@@ -2111,7 +2107,7 @@ def check_select_k(dev, calls: dict, out_dir: str) -> dict:
         shapes.append(select_k_timing(label, call, out_dir))
     select_k_edge_cases(dev)
     head = next(c for c in calls.values() if c["site"] == "_select_subsegments")
-    one_launch_no_sync(lambda: topk._select_min_k(head["d"], head["k"]), "select_k")
+    one_launch_no_sync(lambda: topk.select_k(head["d"], head["k"]), "select_k")
     chunk = [c for c in calls.values() if c["valid"] is not None]
     if chunk:
         c = chunk[0]
@@ -3168,7 +3164,7 @@ def rescore_timing(label, q, segs, tape, xn, valid, rr, k: int, out_dir: str) ->
     pool_rows = 0
     if rr is not None:
         brows, bvals = s._phase_b_plain(q, segs, tape, xn, valid, True, s.Metric.L2SQ)
-        bv, bp = s._select_min_k(bvals, m)
+        bv, bp = s.topk.select_k(bvals, m)
         pool = torch.where(torch.isfinite(bv), brows.gather(1, bp.long()), -1)
         pool_rows = int(torch.unique(pool[pool >= 0]).numel())
         bytes_moved += pool_rows * d * rr.element_size()

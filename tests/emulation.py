@@ -64,6 +64,18 @@ using ::smem_addr;
 # headers of csrc/ replaced by the emulation's stand-ins for their PTX
 _STUBS = {"wgmma.cuh": _WGMMA_STUB, "cpasync.cuh": _CPASYNC_STUB}
 
+# Mutants of csrc/tiles.cuh, the tile code that K2 (scan.cu) and
+# pivot_product (pivots.cu) share, as edits of the headers (`setup`): the
+# mutant tests of each kernel that includes it take every one. SBO one
+# atom row instead of one atom; warp w's rows 16w.. of each m64 tile, as a
+# plain m64 product would map them, not its own 32-row sub-segment.
+TILE_MUTANTS = {
+    "descriptor_stride": [("(static_cast<uint64_t>(ATOM >> 4) << 32)",
+                           "(static_cast<uint64_t>(ATOM_ROW >> 4) << 32)")],
+    "subsegment_rows": [("const int r = 32 * warp + 16 * mt + 8 * h + g;",
+                         "const int r = 16 * warp + 64 * mt + 8 * h + g;")],
+}
+
 
 def for_gpp(text: str) -> str:
     text = text.replace("extern __shared__ __align__(16) unsigned char smem[];",

@@ -18,8 +18,8 @@ inf query (NaN and inf where the f32 product has them), and one-hot
 pivots that give back normals, values near the f32 maximum and
 subnormals bit for bit, in one column group and across several. The
 plan of rows that one group holds is pinned to its arithmetic, written
-out here. Two mutants (the lo plane dropped; hi alone) must each fail a
-case. The emulation shows what
+out here. Four mutants (the lo plane dropped; hi alone; and the two of
+the tile code that `csrc/tiles.cuh` shares with K2) must each fail a case. The emulation shows what
 the kernel computes, never how fast, and it cannot show a missing
 barrier. One test, marked `cuda`, holds the kernel against `torch.matmul`
 in f32 on the card and the seeding through it against the f32 GEMM's,
@@ -38,7 +38,9 @@ import emulation
 import vss_tpu_torch.index.search as tsearch
 from vss_tpu_torch import csrc
 
-# the two mutants: the lo plane's products dropped; the hi plane's alone
+# the mutants of pivots.cu: the lo plane's products dropped; the hi plane's
+# alone. With them, those of the tile code it shares with K2
+# (`emulation.TILE_MUTANTS`, edits of csrc/tiles.cuh).
 _PLANES_LOOP = "for (int pl = 0; pl < PLANES; ++pl) {  // hi, mid, lo"
 _MUTANTS = {
     "lo_dropped": [(_PLANES_LOOP, "for (int pl = 0; pl < 2; ++pl) {")],
@@ -49,11 +51,11 @@ _DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16}
 _SMEM = 232448  # a block's shared memory on the H100, as the emulation reports it
 
 
-def _build(tmp_path_factory, edits=()):
+def _build(tmp_path_factory, edits=(), header_edits=()):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     work = tmp_path_factory.mktemp("cuda_emulation")
-    emulation.setup(work)
+    emulation.setup(work, header_edits)
     return emulation.build(work, ("pivots",), edits)["pivots"]
 
 
@@ -63,9 +65,10 @@ def emulated(tmp_path_factory):
     return _build(tmp_path_factory)
 
 
-@pytest.fixture(scope="module", params=sorted(_MUTANTS))
+@pytest.fixture(scope="module", params=sorted(_MUTANTS) + sorted(emulation.TILE_MUTANTS))
 def mutant(request, tmp_path_factory):
-    return request.param, _build(tmp_path_factory, _MUTANTS[request.param])
+    return request.param, _build(tmp_path_factory, _MUTANTS.get(request.param, ()),
+                                 emulation.TILE_MUTANTS.get(request.param, ()))
 
 
 def _launch(lib, q, rows, slots, dtype=None) -> torch.Tensor:
@@ -332,13 +335,23 @@ def test_the_plan_of_rows_one_group_holds_is_its_arithmetic(emulated, dtype, ele
     assert _plan(emulated, widest + 1, elem)[4] < widest + 1
 
 
+# each mutant's cases (seed, B, P, d, dtype); the tile code's with more
+# than 8 queries, so that a product's queries span several atoms, in one
+# slab and in three
+_TILE_CASES = [(7, 40, 200, 16, "int8"), (7, 40, 200, 272, "bf16")]
+_MUTANT_CASES = {"lo_dropped": [(7, 8, 200, 16, "int8")], "hi_alone": [(7, 8, 200, 16, "int8")],
+                 "descriptor_stride": _TILE_CASES, "subsegment_rows": _TILE_CASES}
+
+
 def test_mutants_fail_a_case(mutant):
-    """Each mutant leaves the f32 bound on real-valued queries (at d = 16
-    the bound is 2^-19 of sum |q||x|, and lo's part is about 2^-17)."""
+    """Each mutant leaves the f32 bound on real-valued queries in each of
+    its cases (at d = 16 the bound is 2^-19 of sum |q||x|, and lo's part
+    is about 2^-17)."""
     name, lib = mutant
-    table, slots, q = _world(7, 8, 200, 16, "int8")
-    with pytest.raises(AssertionError):
-        _within_bound(_launch(lib, q, table, slots), q, table, slots)
+    for seed, B, P, d, dtype in _MUTANT_CASES[name]:
+        table, slots, q = _world(seed, B, P, d, dtype)
+        with pytest.raises(AssertionError):
+            _within_bound(_launch(lib, q, table, slots), q, table, slots)
 
 
 # ---- the split and the plain version, on the CPU

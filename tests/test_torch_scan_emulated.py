@@ -16,10 +16,10 @@ The data are integer-valued (f32 tapes: values that round to bf16 on
 multiples of 2^-6, under 2^17 in magnitude), so every f32 sum is exact in
 any order and the kernel must equal the plain version exactly for l2sq
 and ip; cosine multiplies by `rsqrtf`, which the emulation computes as
-1/sqrtf: within 1e-6 relative. Four mutants of the kernel (a wrong
-descriptor stride, a ring stage read before its wait, a sub-segment
-mapped to the wrong rows, the consumers' ring stages shared) must each
-fail a case. The emulation shows what
+1/sqrtf: within 1e-6 relative. Four mutants (a wrong descriptor stride
+and a sub-segment mapped to the wrong rows, both in the tile code that
+`csrc/tiles.cuh` shares with pivot_product; a ring stage read before its
+wait, the consumers' ring stages shared) must each fail a case. The emulation shows what
 a kernel computes, never how fast, and it cannot show a missing barrier.
 One test, marked `cuda`, holds the kernel itself against the plain
 version where a CUDA device is present and skips elsewhere; on the card
@@ -75,14 +75,11 @@ extern "C" void emu_wgmma(const uint32_t* a, const unsigned char* img, int img_b
 }
 """
 
-# the four mutants: SBO one atom row instead of one atom; the stage decoded
-# before its mbarrier is awaited; warp w's rows 16w.. of each m64 tile, as
-# a plain m64 product would map them, not its own 32-row sub-segment; the
-# two consumers' stages shared (a consumer's wait can pass on the other's
-# phase)
+# the mutants of scan.cu: the stage decoded before its mbarrier is
+# awaited; the two consumers' stages shared (a consumer's wait can pass on
+# the other's phase). With them, those of the tile code it shares with
+# pivot_product (`emulation.TILE_MUTANTS`, edits of csrc/tiles.cuh).
 _MUTANTS = {
-    "descriptor_stride": [("(static_cast<uint64_t>(ATOM >> 4) << 32)",
-                           "(static_cast<uint64_t>(ATOM_ROW >> 4) << 32)")],
     "stage_before_wait": [(
         "      mbar_wait(&full[st], pos.parity);\n"
         "      with_steps(w / 16, [&](auto steps) {\n"
@@ -92,8 +89,6 @@ _MUTANTS = {
         "        decode_slab<TX, decltype(steps)::value>(a, ring + st * p.stage_bytes, warp, g, t);\n"
         "      });\n"
         "      mbar_wait(&full[st], pos.parity);\n")],
-    "subsegment_rows": [("const int r = 32 * warp + 16 * mt + 8 * h + g;",
-                         "const int r = 16 * warp + 64 * mt + 8 * h + g;")],
     "shared_stages": [("  return c * p.nsw + st;", "  return st;")],
 }
 
@@ -116,12 +111,12 @@ def emulated(tmp_path_factory):
     return libs
 
 
-@pytest.fixture(scope="module", params=sorted(_MUTANTS))
+@pytest.fixture(scope="module", params=sorted(_MUTANTS) + sorted(emulation.TILE_MUTANTS))
 def mutant(request, tmp_path_factory):
     _gpp_or_skip()
     work = tmp_path_factory.mktemp("cuda_emulation")
-    emulation.setup(work)
-    return request.param, emulation.build(work, ("scan",), _MUTANTS[request.param])["scan"]
+    emulation.setup(work, emulation.TILE_MUTANTS.get(request.param, ()))
+    return request.param, emulation.build(work, ("scan",), _MUTANTS.get(request.param, ()))["scan"]
 
 
 def _ptr(a: np.ndarray):

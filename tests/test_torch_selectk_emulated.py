@@ -255,16 +255,16 @@ def test_select_k_on_cpu_runs_the_plain_version(monkeypatch):
     monkeypatch.setattr(ttopk._SELECT_K, "launch", refuse)
     d = _rows(4, 3, 200, "edge")
     for k in (5, 40):
-        gv, gp = ttopk._select_min_k(d, k)
+        gv, gp = ttopk.select_k(d, k)
         wv, wp = ttopk._select_min_k_plain(d, k)
         np.testing.assert_array_equal(gp.numpy(), wp.numpy())
         np.testing.assert_array_equal(_bits(gv), _bits(wv))
 
 
 def test_select_k_dispatch_on_device_and_k(monkeypatch):
-    """Off the CPU, `select_k` (and `_select_min_k` through it) launches the
-    kernel for every k <= SELECT_K_MAX and keeps the stable sort above it;
-    on the CPU it never launches. A meta tensor stands in for a CUDA one."""
+    """Off the CPU, `select_k` launches the kernel for every k <=
+    SELECT_K_MAX and keeps the stable sort above it; on the CPU it never
+    launches. A meta tensor stands in for a CUDA one."""
     launched = []
 
     def launch(d, k, valid, nan_as_inf, splits=None):
@@ -274,16 +274,16 @@ def test_select_k_dispatch_on_device_and_k(monkeypatch):
     monkeypatch.setattr(ttopk, "_select_k_launch", launch)
     d = torch.empty((2, 400), device="meta")
     ttopk.select_k(d, ttopk.SELECT_K_MAX)
-    ttopk._select_min_k(d, 20)
+    ttopk.select_k(d, 20)
     ttopk.select_k(d, 40, torch.ones(400, dtype=torch.bool, device="meta"), True)
-    v, p = ttopk._select_min_k(d, 300)
+    v, p = ttopk.select_k(d, 300)
     assert launched == [256, 20, 40]
     assert v.shape == p.shape == (2, 300) and p.dtype == torch.int32
     x = _rows(5, 2, 400, "edge")
-    gv, gp = ttopk._select_min_k(x, 300)
+    gv, gp = ttopk.select_k(x, 300)
     wv, wp = ttopk._sort_min_k(x, 300)
     np.testing.assert_array_equal(gp.numpy(), wp.numpy())
-    ttopk._select_min_k(x, 20)
+    ttopk.select_k(x, 20)
     assert launched == [256, 20, 40]
 
 

@@ -139,7 +139,7 @@ def test_k3_plain_matches_pallas_kernel(interpret_pallas, metric):
         torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(vm), metric
     )
     assert segmins.shape == (15, nq)  # ceil(1800 / 128)
-    td, ti = ttopk._select_min_k(segmins.T.contiguous(), keep)
+    td, ti = ttopk.select_k(segmins.T.contiguous(), keep)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL, atol=ATOL)
 

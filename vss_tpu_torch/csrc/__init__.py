@@ -47,7 +47,7 @@ SOURCES = {
     # a latency measurement, not a kernel of any path (see probe.cu)
     "probe": "probe.cu",
 }
-_HEADERS = ("common.cuh", "gather.cuh", "wgmma.cuh", "selectk.cuh", "cpasync.cuh")
+_HEADERS = ("common.cuh", "gather.cuh", "wgmma.cuh", "selectk.cuh", "cpasync.cuh", "tiles.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -133,18 +133,6 @@ inline __host__ __device__ BeamLayout beam_layout(int ef, int n, int P, int d,
   return L;
 }
 
-// A float as an unsigned key that orders as torch.sort and torch.argmin
-// order floats: ascending, -0 equal to +0, every NaN equal and after +inf.
-__device__ __forceinline__ unsigned sort_key(float v) {
-  if (isnan(v)) return 0xffffffffu;
-  const unsigned u = __float_as_uint(v);
-  if (u == 0x80000000u) return 0x80000000u;  // -0 as +0
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ float key_value(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
 struct Best {
   float key;  // least key, NaN left out
   int pos;    // its lowest position (as torch.argmin)
@@ -169,7 +157,7 @@ __device__ __forceinline__ Best pool_min(const float* keys,
     if (isnan(k)) {
       nan = true;
     } else {
-      const unsigned u = sort_key(k);
+      const unsigned u = order_key(k, false);
       if (u < bk) bk = u, bp = i;  // i ascends: the first of equal keys stays
     }
   }
@@ -195,7 +183,7 @@ __device__ __forceinline__ Best pool_min(const float* keys,
     best.nan = best.nan || raw < 0;
     if (wk2 < k || (wk2 == k && p < best.pos)) k = wk2, best.pos = p;
   }
-  best.key = key_value(k);
+  best.key = key_float(k);
   return best;
 }
 
@@ -452,16 +440,16 @@ __global__ void beam_kernel(BeamArgs a) {
       const bool mine_in = rank_of < n;
       const float mine = mine_in ? nd[rank_of] : CUDART_INF_F;
       const bool mine_ok = mine_in && a.dual && okf[rank_of] != 0;
-      const unsigned ck = sort_key(mine);
-      const unsigned rk = sort_key(mine_ok ? mine : CUDART_INF_F);
+      const unsigned ck = order_key(mine, false);
+      const unsigned rk = order_key(mine_ok ? mine : CUDART_INF_F, false);
       int rank = 0, rrank = 0;
       if (mine_in) {
         for (int j = rank_lane; j < n; j += 1 << rl) {
           const float v = nd[j];
-          const unsigned kj = sort_key(v);
+          const unsigned kj = order_key(v, false);
           rank += (kj < ck || (kj == ck && j < rank_of)) ? 1 : 0;
           if (a.dual) {
-            const unsigned rj = okf[j] ? kj : sort_key(CUDART_INF_F);
+            const unsigned rj = okf[j] ? kj : order_key(CUDART_INF_F, false);
             rrank += (rj < rk || (rj == rk && j < rank_of)) ? 1 : 0;
           }
         }

@@ -6,6 +6,8 @@
 //   the compiler cannot contract them into an FMA the plain PyTorch
 //   version does not do.
 // * 16-element row loaders that decode int8 / bf16 / f32 to f32 (exact).
+// * `order_key` / `key_float`: the order of floats as unsigned keys, by
+//   which every selection and sort of the port breaks its ties.
 // * `tile_dots`: the SIMT f32 tile loop that K3 (topk.cu) and K4
 //   (distance.cu) share. A block of 256 threads scores a tile of
 //   128 tape rows against 128 queries, staging 16 columns of both in
@@ -59,6 +61,22 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The order of f32 values as an unsigned key, the tie rule of every
+// selection and sort of the port: ascending, -0 as +0, NaN least
+// (`nan_first`: torch.argmin's order) or greatest (torch.sort's).
+__device__ __forceinline__ unsigned order_key(float v, bool nan_first) {
+  if (isnan(v)) return nan_first ? 0u : 0xffffffffu;
+  unsigned u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The least float whose key is `key` (NaN where no float compares: the
+// NaN keys, and a threshold not yet set).
+__device__ __forceinline__ float key_float(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? key & 0x7fffffffu : ~key);
 }
 
 // ---- 16 consecutive elements -> f32 (pointer 16-byte aligned)

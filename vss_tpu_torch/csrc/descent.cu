@@ -79,15 +79,6 @@ inline __host__ __device__ int descent_smem(int d) {
   return partials_offset(d) + 2 * 4 * 4 * kWarps;
 }
 
-// torch.argmin's order of floats as an unsigned key: every NaN first, then
-// ascending, -0 equal to +0.
-__device__ __forceinline__ unsigned argmin_key(float v) {
-  if (isnan(v)) return 0u;
-  const unsigned u = __float_as_uint(v);
-  if (u == 0x80000000u) return 0x80000000u;  // -0 as +0
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
 // (key, pos) before (k2, p2): the lesser key, then the lower position
 __device__ __forceinline__ bool before(unsigned k2, int p2, unsigned key,
                                        int pos) {
@@ -152,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) descent_kernel(DescentArgs a) {
       if (c < M) {
         const float v =
             id >= 0 ? epilogue(dot, qnb, xn, a.metric) : CUDART_INF_F;
-        const unsigned k = argmin_key(v);
+        const unsigned k = order_key(v, true);
         // c ascends within a group: the first of equal keys stays
         if (k < bk) bk = k, bp = c, bv = v, bi = id;
       }

@@ -17,17 +17,47 @@ __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
 }
 
-// one 16-byte load: 16 int8, 8 bf16 or 4 f32 values
-__device__ __forceinline__ void load_vec(const int8_t* p, float v[16]) {
-  load16(p, v);
+// The tape's storage format, read a chunk at a time: one chunk of a row
+// is 16 bytes (16 int8, 8 bf16 or 4 f32 values), or with `vec` false
+// (rows whose bytes are not a multiple of 16) one element as f32 bits.
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* p, bool vec) {
+  uint4 r;
+  if (vec) {
+    r = *reinterpret_cast<const uint4*>(p);
+  } else {
+    r.x = __float_as_uint(to_f32(*p));
+    r.y = r.z = r.w = 0u;
+  }
+  return r;
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float v[16]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  bf16x2(u.x, v[0], v[1]);
-  bf16x2(u.y, v[2], v[3]);
-  bf16x2(u.z, v[4], v[5]);
-  bf16x2(u.w, v[6], v[7]);
+
+// A 16-byte chunk's values as f32: 16 / sizeof(T) of them.
+__device__ __forceinline__ void decode(const uint4& r, int8_t, float v[16]) {
+  i8x4(r.x, v);
+  i8x4(r.y, v + 4);
+  i8x4(r.z, v + 8);
+  i8x4(r.w, v + 12);
+}
+__device__ __forceinline__ void decode(const uint4& r, __nv_bfloat16, float v[8]) {
+  bf16x2(r.x, v[0], v[1]);
+  bf16x2(r.y, v[2], v[3]);
+  bf16x2(r.z, v[4], v[5]);
+  bf16x2(r.w, v[6], v[7]);
+}
+__device__ __forceinline__ void decode(const uint4& r, float, float v[4]) {
+  v[0] = __uint_as_float(r.x);
+  v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z);
+  v[3] = __uint_as_float(r.w);
+}
+
+// one 16-byte chunk at p (16-byte aligned) as f32; f32 chunks by a float4
+// load of their own (through `load_chunk`'s uint4, select_kernel<float>
+// compiles to other code)
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float v[16]) {
+  decode(load_chunk(p, true), T(), v);
 }
 __device__ __forceinline__ void load_vec(const float* p, float v[16]) {
   const float4 a = *reinterpret_cast<const float4*>(p);

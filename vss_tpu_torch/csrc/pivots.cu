@@ -39,7 +39,8 @@
 // 193 G at 512 queries x 65,536 pivots x 960, 0.195 ms at 989 TFLOP/s)
 // against P d bytes of pivot rows, 4 B d of queries and 4 B P of output
 // (0.06 ms at 3.35 TB/s): the bound is the tensor cores' rate. The
-// design, after K2 (scan.cu), whose decode and query image it repeats:
+// design is K2's (scan.cu), with its decode, query image and ring
+// (tiles.cuh):
 //  * Persistent blocks of three warpgroups: a producer and two consumers.
 //    The grid is query tiles x blocks; a block walks the 128-row pivot
 //    tiles first, first + per_q, ... and its consumers take them in turn,
@@ -85,26 +86,15 @@
 // stores. Measured times: PERF.md.
 #include <type_traits>
 
-#include "common.cuh"
 #include "cpasync.cuh"
-#include "wgmma.cuh"
+#include "tiles.cuh"
 
 namespace vss {
 namespace pp {
 
-constexpr int ROWS = 128;        // pivot rows of a tile: one consumer's products
 constexpr int NC = 32;           // queries of a product (wgmma's n)
 constexpr int PLANES = 3;        // hi, mid, lo
-constexpr int MAX_STEPS = 8;     // k16 steps of a slab, at most (128 columns)
-constexpr int CONSUMERS = 2;     // consumer warpgroups a block
-constexpr int THREADS = 128 * (1 + CONSUMERS);
-// the queries' image: 128-byte swizzle atoms of 8 queries x 64 values
-// (4 k16 steps), a query's 128 bytes a row
-constexpr int ATOM_ROW = 128;
-constexpr int ATOM = 8 * ATOM_ROW;
-constexpr int ATOM_STEPS = 4;
-constexpr int ATOM_COLS = 64;
-constexpr unsigned RING_OFF = 1024;  // the ring's offset in shared memory, after the barriers
+constexpr int ATOM_COLS = 64;    // columns of an atom of the queries' image
 
 // The block's plan, the same for every block (computed by `plan` below).
 struct Plan {
@@ -122,30 +112,6 @@ struct Plan {
   unsigned shift_off;  // each query's s
   unsigned smem;       // bytes of shared memory
 };
-
-// Byte offset of query n, column c (of a slab of 16 S columns) in a
-// plane's image of a tile of nqt queries (1024-byte aligned in shared
-// memory), as K2 lays it out: thread t of a row takes columns
-// 4 S t .. 4 S t + 4 S - 1; its four columns of step s (4 S t + 4 s + j,
-// j = 0..3) sit at wgmma's k = 2t, 2t+1, 2t+8, 2t+9 of that step. Steps
-// 4i..4i+3 of all nqt queries are a column of atoms, nqt * 128 bytes; in
-// an atom, query n % 8's row holds its 32 bytes of each step, and the
-// 16-byte chunks of a row are XORed with the row (128-byte swizzle).
-__device__ __forceinline__ unsigned q_offset(int n, int c, int S, int nqt) {
-  const int t = c / (4 * S), r = c % (4 * S);
-  const int s = r >> 2, j = r & 3;
-  const int k = 2 * t + (j & 1) + 8 * (j >> 1);
-  const unsigned a = (s / ATOM_STEPS) * nqt * ATOM_ROW + (n >> 3) * ATOM + (n & 7) * ATOM_ROW +
-                     (s % ATOM_STEPS) * 32 + k * 2;
-  return a ^ (((a >> 7) & 7) << 4);
-}
-
-// The descriptor of B for 32 queries' step whose bytes start at shared
-// address `addr`: 128-byte swizzle, SBO one atom (LBO unused).
-__device__ __forceinline__ uint64_t b_desc(unsigned addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(ATOM >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
 
 // s of a query row (the head note), by one warp: the row's highest and
 // lowest set bits, and whether it holds an inf or a NaN
@@ -233,66 +199,6 @@ __device__ __forceinline__ void stage_queries(unsigned char* img, const float* q
   }
 }
 
-// two f32 values exact in bf16 -> one bf16x2 word (lo in the low half)
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// four stored values (columns 4s..4s+3 of this thread's run, in the words
-// at w) -> the two A words: lo = values 0, 1 (k 2t, 2t+1), hi = values 2,
-// 3 (k 2t+8, 2t+9)
-__device__ __forceinline__ void decode4(const uint32_t* w, int8_t, uint32_t& lo, uint32_t& hi) {
-  // bias each byte by 128 and place it under the exponent of 2^23: the
-  // f32 value 2^23 + 128 + x, less 2^23 + 128, is x exactly
-  const uint32_t u = w[0] ^ 0x80808080u;
-  const float m = 8388736.0f;  // 2^23 + 128
-  const float v0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - m;
-  const float v1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - m;
-  const float v2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - m;
-  const float v3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - m;
-  lo = pack2(v0, v1);
-  hi = pack2(v2, v3);
-}
-__device__ __forceinline__ void decode4(const uint32_t* w, __nv_bfloat16, uint32_t& lo,
-                                        uint32_t& hi) {
-  lo = w[0];
-  hi = w[1];
-}
-
-// This thread's A fragments of a staged slab of 16 S columns: rows
-// 32 warp + 16 mt + 8 h + g of the tile, its run of 4 S columns, read in
-// 16-byte loads where the run is a multiple of 16 bytes.
-template <typename TX, int S>
-__device__ __forceinline__ void decode_slab(uint32_t a[2][MAX_STEPS][4],
-                                            const unsigned char* stage, int warp, int g, int t) {
-  constexpr int WORDS = S * sizeof(TX);  // 32-bit words of a run
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 32 * warp + 16 * mt + 8 * h + g;
-      const uint32_t* run = reinterpret_cast<const uint32_t*>(
-          stage + (r * 16 * S + 4 * S * t) * static_cast<int>(sizeof(TX)));
-      uint32_t w[WORDS];
-      if constexpr (WORDS % 4 == 0) {
-#pragma unroll
-        for (int k = 0; k < WORDS / 4; ++k) {
-          const uint4 u = reinterpret_cast<const uint4*>(run)[k];
-          w[4 * k] = u.x;
-          w[4 * k + 1] = u.y;
-          w[4 * k + 2] = u.z;
-          w[4 * k + 3] = u.w;
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < WORDS; ++k) w[k] = run[k];
-      }
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        decode4(w + s * sizeof(TX), TX(), a[mt][s][h], a[mt][s][2 + h]);
-    }
-}
-
 // Issue the products of a slab of S steps with 32 queries, the three
 // planes with the same A, as one group: B's descriptor `desc` for the hi
 // plane's first step, `dcol` (in its address field) a column of atoms
@@ -300,7 +206,7 @@ __device__ __forceinline__ void decode_slab(uint32_t a[2][MAX_STEPS][4],
 // ACCUMULATE, else the first product writes the accumulators.
 template <int S, bool ACCUMULATE>
 __device__ __forceinline__ void issue_planes(float acc[2][16],
-                                             const uint32_t a[2][MAX_STEPS][4], uint64_t desc,
+                                             const uint32_t a[2][STEPS][4], uint64_t desc,
                                              uint64_t dcol, uint64_t dplane) {
   wgmma_fence();
 #pragma unroll
@@ -320,43 +226,6 @@ __device__ __forceinline__ void issue_planes(float acc[2][16],
   }
   wgmma_commit();
 }
-
-// Wait until no group is in flight, then let the accumulators be read.
-__device__ __forceinline__ void await_products(float acc[2][16]) {
-  wgmma_wait<0>();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) fence_operand(acc[mt][i]);
-}
-
-// f(std::integral_constant<int, S>) for the slab's steps S (1..8), so
-// that its decode and products are unrolled with no branch between them
-template <typename F>
-__device__ __forceinline__ void with_steps(int S, F&& f) {
-  switch (S) {
-    case 1: f(std::integral_constant<int, 1>()); break;
-    case 2: f(std::integral_constant<int, 2>()); break;
-    case 3: f(std::integral_constant<int, 3>()); break;
-    case 4: f(std::integral_constant<int, 4>()); break;
-    case 5: f(std::integral_constant<int, 5>()); break;
-    case 6: f(std::integral_constant<int, 6>()); break;
-    case 7: f(std::integral_constant<int, 7>()); break;
-    default: f(std::integral_constant<int, 8>()); break;
-  }
-}
-
-// A consumer's place in its ring: the stage and the parity of its next
-// use, advanced a use at a time
-struct RingPos {
-  int st = 0, parity = 0;
-  __device__ __forceinline__ void advance(int nsw) {
-    if (++st == nsw) {
-      st = 0;
-      parity ^= 1;
-    }
-  }
-};
 
 // the columns of slab z
 __device__ __forceinline__ int slab_width(const Plan& p, int z) {
@@ -426,14 +295,14 @@ __device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, 
   const int nchunks = p.nqt / NC;
   const uint64_t dcol = (p.nqt * ATOM_ROW) >> 4;  // a column of atoms, in 16 bytes
   const uint64_t dplane = p.plane_bytes >> 4;
-  uint32_t a[2][2][MAX_STEPS][4];  // two A fragments: one decoded while the other's products run
+  uint32_t a[2][2][STEPS][4];  // two A fragments: one decoded while the other's products run
   float acc[2][16];
   RingPos pos;
   for (int64_t j = wg;; j += CONSUMERS) {
     const int64_t tile = first + j * p.per_q;
     if (tile >= p.ntiles) break;
     // decode a slab of the tile into `frag` and release its stage
-    auto take_slab = [&](uint32_t (&frag)[2][MAX_STEPS][4], int w) {
+    auto take_slab = [&](uint32_t (&frag)[2][STEPS][4], int w) {
       const int st = wg * p.nsw + pos.st;
       mbar_wait(&full[st], pos.parity);
       with_steps(w / 16, [&](auto steps) {
@@ -475,7 +344,7 @@ __device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, 
         constexpr int S = decltype(steps)::value;
         for (int c = 0; c < nchunks; ++c) {
           issue_planes<S, false>(acc, a[0], b_desc(qaddr + c * (NC / 8) * ATOM), dcol, dplane);
-          await_products(acc);
+          await_products<0>(acc);
           store(c);
         }
       });
@@ -485,7 +354,7 @@ __device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, 
       // group, and once the group before is done (wait 1) the other
       // fragment is free for slab z + 1
       auto slab = [&](auto buf, int z) {
-        uint32_t (&frag)[2][MAX_STEPS][4] = a[decltype(buf)::value];
+        uint32_t (&frag)[2][STEPS][4] = a[decltype(buf)::value];
         const int w = slab_width(p, z);
         take_slab(frag, w);
         const unsigned qz = qaddr + z * (p.slab / ATOM_COLS) * p.nqt * ATOM_ROW;
@@ -501,7 +370,7 @@ __device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, 
         slab(std::integral_constant<int, 0>(), z);
         if (z + 1 < p.nslab) slab(std::integral_constant<int, 1>(), z + 1);
       }
-      await_products(acc);
+      await_products<0>(acc);
       store(0);
     }
   }
@@ -510,7 +379,7 @@ __device__ __forceinline__ void consume(float* __restrict__ out, int nq, int P, 
 }  // namespace pp
 
 template <typename TX>
-__global__ void __launch_bounds__(pp::THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
     pivot_product_kernel(const float* __restrict__ q, const TX* __restrict__ rows,
                          const int* __restrict__ slots, float* __restrict__ out, int nq, int P,
                          int d, int64_t ld, int wide, int accumulate, pp::Plan p) {
@@ -553,8 +422,6 @@ __global__ void __launch_bounds__(pp::THREADS, 1)
 }
 
 namespace pp {
-
-inline unsigned align_up(unsigned v, unsigned a) { return (v + a - 1) / a * a; }
 
 // The plan for nq queries over P pivots of d values of `elem` bytes, on a
 // card of `sms` SMs with `smem_max` bytes a block. False where nothing
@@ -642,7 +509,7 @@ int launch(const float* q, const void* x, const int* slots, float* out, int nq, 
     const unsigned blocks = static_cast<unsigned>(p.q_tiles) * p.per_q;
     cudaFuncSetAttribute(pivot_product_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          p.smem);
-    pivot_product_kernel<TX><<<blocks, pp::THREADS, p.smem, s>>>(
+    pivot_product_kernel<TX><<<blocks, THREADS, p.smem, s>>>(
         q + c0, static_cast<const TX*>(x) + c0, slots, out, nq, P, w, d, wide, c0 > 0, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -105,33 +105,6 @@ __device__ __forceinline__ void accumulate(float r, float q, bool l2, float& s0,
   }
 }
 
-// One chunk of a row: 16 bytes, or without `vec` one element as f32 bits.
-template <typename T>
-__device__ __forceinline__ uint4 row_chunk(const T* p, bool vec) {
-  uint4 r;
-  if (vec) {
-    r = *reinterpret_cast<const uint4*>(p);
-  } else {
-    r.x = __float_as_uint(to_f32(*p));
-    r.y = r.z = r.w = 0u;
-  }
-  return r;
-}
-
-// The chunk's values as f32: 16 / sizeof(T) of them.
-__device__ __forceinline__ void chunk_values(const uint4& r, __nv_bfloat16, float v[8]) {
-  bf16x2(r.x, v[0], v[1]);
-  bf16x2(r.y, v[2], v[3]);
-  bf16x2(r.z, v[4], v[5]);
-  bf16x2(r.w, v[6], v[7]);
-}
-__device__ __forceinline__ void chunk_values(const uint4& r, float, float v[4]) {
-  v[0] = __uint_as_float(r.x);
-  v[1] = __uint_as_float(r.y);
-  v[2] = __uint_as_float(r.z);
-  v[3] = __uint_as_float(r.w);
-}
-
 // The composites of pool positions [p0, p1) of one query into dst[0, p1 -
 // p0): order_key(value) << 32 | position, or kNone for a composite below
 // `lo` (one that an earlier round wrote out). Every thread of the block
@@ -161,8 +134,8 @@ __device__ __forceinline__ void score_range(const RerankArgs& a, const float* q,
       uint4 raw[kRpUnroll];
 #pragma unroll
       for (int u = 0; u < kRpUnroll; ++u)
-        raw[u] = id[u] >= 0 ? row_chunk(rows + static_cast<int64_t>(id[u]) * a.d + c * step,
-                                        a.vec)
+        raw[u] = id[u] >= 0 ? load_chunk(rows + static_cast<int64_t>(id[u]) * a.d + c * step,
+                                         a.vec)
                             : make_uint4(0u, 0u, 0u, 0u);
       float qv[VE];
       if (a.vec) {
@@ -182,7 +155,7 @@ __device__ __forceinline__ void score_range(const RerankArgs& a, const float* q,
         if (id[u] < 0) continue;
         if (a.vec) {
           float v[VE];
-          chunk_values(raw[u], RT(), v);
+          decode(raw[u], RT(), v);
 #pragma unroll
           for (int e = 0; e < VE; ++e) accumulate(v[e], qv[e], l2, s0[u], s1[u]);
         } else {

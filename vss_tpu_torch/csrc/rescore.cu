@@ -111,39 +111,6 @@ __device__ __forceinline__ int64_t seg_row(int seg, int lane, int64_t nx) {
   return seg < 0 || row >= nx ? -1 : row;
 }
 
-// One chunk of a row: 16 bytes, or with `vec` false one element as f32 bits.
-template <typename T>
-__device__ __forceinline__ uint4 load_chunk(const T* p, bool vec) {
-  uint4 r;
-  if (vec) {
-    r = *reinterpret_cast<const uint4*>(p);
-  } else {
-    r.x = __float_as_uint(to_f32(*p));
-    r.y = r.z = r.w = 0u;
-  }
-  return r;
-}
-
-// The chunk's values as f32: 16 / sizeof(T) of them, or one.
-__device__ __forceinline__ void decode(const uint4& r, int8_t, float v[16]) {
-  i8x4(r.x, v);
-  i8x4(r.y, v + 4);
-  i8x4(r.z, v + 8);
-  i8x4(r.w, v + 12);
-}
-__device__ __forceinline__ void decode(const uint4& r, __nv_bfloat16, float v[16]) {
-  bf16x2(r.x, v[0], v[1]);
-  bf16x2(r.y, v[2], v[3]);
-  bf16x2(r.z, v[4], v[5]);
-  bf16x2(r.w, v[6], v[7]);
-}
-__device__ __forceinline__ void decode(const uint4& r, float, float v[16]) {
-  v[0] = __uint_as_float(r.x);
-  v[1] = __uint_as_float(r.y);
-  v[2] = __uint_as_float(r.z);
-  v[3] = __uint_as_float(r.w);
-}
-
 // dot += chunk . query, in element order: the query's value of element e
 // at qc[e * stride] (the staged query's layout, `stage_query`). ROUND rounds
 // each f32 value to bf16 (int8 and bf16 values are exact in bf16 already).

@@ -51,29 +51,18 @@
 //    in warps whose sub-segment holds one; one coalesced store a lane. The
 //    rows' norms and flags are loaded a tile ahead.
 // One group of products is in flight a consumer: the other consumer's
-// products run while one decodes or takes its minima. Measured times and
-// what holds the kernel back: PERF.md.
-#include <type_traits>
-
-#include "common.cuh"
+// products run while one decodes or takes its minima. The decode, the
+// query image's layout and the ring's bookkeeping are tiles.cuh's, shared
+// with pivot_product (pivots.cu). Measured times and what holds the
+// kernel back: PERF.md.
 #include "cpasync.cuh"
-#include "wgmma.cuh"
+#include "tiles.cuh"
 
 namespace vss {
 namespace k2 {
 
-constexpr int ROWS = 128;          // tape rows of a tile: one consumer's products
 constexpr int NC = 64;             // queries of a product (wgmma's n)
-constexpr int SLAB = 128;          // columns a stage holds, at most
-constexpr int STEPS = SLAB / 16;   // k16 steps of a slab, at most
-constexpr int CONSUMERS = 2;       // consumer warpgroups a block
-constexpr int THREADS = 128 * (1 + CONSUMERS);
-// the queries' image: 128-byte swizzle atoms of 8 queries x 64 values
-// (4 k16 steps), a query's 128 bytes a row
-constexpr int ATOM_ROW = 128;
-constexpr int ATOM = 8 * ATOM_ROW;
-constexpr int ATOM_STEPS = 4;
-constexpr unsigned RING_OFF = 1024;  // the ring's offset in shared memory, after the barriers
+constexpr int SLAB = 16 * STEPS;   // columns a stage holds, at most
 
 // The block's plan, the same for every block (computed by `plan` below).
 struct Plan {
@@ -88,31 +77,6 @@ struct Plan {
   unsigned q_off;      // byte offset of the queries in shared memory
   unsigned smem;       // bytes of shared memory
 };
-
-// Byte offset of query n, column c (of a slab of 16 S columns) in the
-// query image of a tile of nqt queries (1024-byte aligned in shared
-// memory): thread t of a row takes columns 4 S t .. 4 S t + 4 S - 1; its
-// four columns of step s (4 S t + 4 s + j, j = 0..3) sit at wgmma's k =
-// 2t, 2t+1, 2t+8, 2t+9 of that step. Steps 4i..4i+3 of all nqt queries
-// are a column of atoms, nqt * 128 bytes; in an atom, query n % 8's row
-// holds its 32 bytes of each step, and the 16-byte chunks of a row are
-// XORed with the row (128-byte swizzle: K2 ran 5% faster with it than with
-// 8 x 8 core matrices without swizzle on an H100 SXM at 700 W).
-__device__ __forceinline__ unsigned q_offset(int n, int c, int S, int nqt) {
-  const int t = c / (4 * S), r = c % (4 * S);
-  const int s = r >> 2, j = r & 3;
-  const int k = 2 * t + (j & 1) + 8 * (j >> 1);
-  const unsigned a = (s / ATOM_STEPS) * nqt * ATOM_ROW + (n >> 3) * ATOM + (n & 7) * ATOM_ROW +
-                     (s % ATOM_STEPS) * 32 + k * 2;
-  return a ^ (((a >> 7) & 7) << 4);
-}
-
-// The descriptor of B for 64 queries' step whose bytes start at shared
-// address `addr`: 128-byte swizzle, SBO one atom (LBO unused).
-__device__ __forceinline__ uint64_t b_desc(unsigned addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(ATOM >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
 
 // Write queries q0.. (nqt of them, zeros past nq), columns col0..col0+w-1,
 // into the image at `dst`, thread `i` of `n`: runs of 8 columns, four
@@ -144,70 +108,6 @@ __device__ __forceinline__ void stage_queries(unsigned char* dst, const __nv_bfl
   }
 }
 
-// two f32 values exact in bf16 -> one bf16x2 word (lo in the low half)
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// four stored values (columns 4s..4s+3 of this thread's run, in the words
-// at w) -> the two A words: lo = values 0, 1 (k 2t, 2t+1), hi = values 2,
-// 3 (k 2t+8, 2t+9)
-__device__ __forceinline__ void decode4(const uint32_t* w, int8_t, uint32_t& lo, uint32_t& hi) {
-  // bias each byte by 128 and place it under the exponent of 2^23: the
-  // f32 value 2^23 + 128 + x, less 2^23 + 128, is x exactly
-  const uint32_t u = w[0] ^ 0x80808080u;
-  const float m = 8388736.0f;  // 2^23 + 128
-  const float v0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - m;
-  const float v1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - m;
-  const float v2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - m;
-  const float v3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - m;
-  lo = pack2(v0, v1);
-  hi = pack2(v2, v3);
-}
-__device__ __forceinline__ void decode4(const uint32_t* w, __nv_bfloat16, uint32_t& lo,
-                                        uint32_t& hi) {
-  lo = w[0];
-  hi = w[1];
-}
-__device__ __forceinline__ void decode4(const uint32_t* w, float, uint32_t& lo, uint32_t& hi) {
-  lo = pack2(round_bf16(__uint_as_float(w[0])), round_bf16(__uint_as_float(w[1])));
-  hi = pack2(round_bf16(__uint_as_float(w[2])), round_bf16(__uint_as_float(w[3])));
-}
-
-// This thread's A fragments of a staged slab of 16 S columns: rows
-// 32 warp + 16 mt + 8 h + g of the tile, its run of 4 S columns, read in
-// 16-byte loads where the run is a multiple of 16 bytes.
-template <typename TX, int S>
-__device__ __forceinline__ void decode_slab(uint32_t a[2][STEPS][4], const unsigned char* stage,
-                                            int warp, int g, int t) {
-  constexpr int WORDS = S * sizeof(TX);  // 32-bit words of a run
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 32 * warp + 16 * mt + 8 * h + g;
-      const uint32_t* run = reinterpret_cast<const uint32_t*>(
-          stage + (r * 16 * S + 4 * S * t) * static_cast<int>(sizeof(TX)));
-      uint32_t w[WORDS];
-      if constexpr (WORDS % 4 == 0) {
-#pragma unroll
-        for (int k = 0; k < WORDS / 4; ++k) {
-          const uint4 u = reinterpret_cast<const uint4*>(run)[k];
-          w[4 * k] = u.x;
-          w[4 * k + 1] = u.y;
-          w[4 * k + 2] = u.z;
-          w[4 * k + 3] = u.w;
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < WORDS; ++k) w[k] = run[k];
-      }
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        decode4(w + s * sizeof(TX), TX(), a[mt][s][h], a[mt][s][2 + h]);
-    }
-}
-
 // Issue the products of a slab of S steps with 64 queries as one group,
 // back to back: B's descriptor `desc` for the first step, `dcol` (in its
 // address field) a column of atoms after; the sums of earlier slabs kept
@@ -228,33 +128,6 @@ __device__ __forceinline__ void issue_products(float acc[2][32], const uint32_t 
     }
   }
   wgmma_commit();
-}
-
-// Wait until at most N groups are in flight, then let the accumulators of
-// the group that landed be read.
-template <int N>
-__device__ __forceinline__ void await_products(float acc[2][32]) {
-  wgmma_wait<N>();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) fence_operand(acc[mt][i]);
-}
-
-// f(std::integral_constant<int, S>) for the slab's steps S (1..8), so
-// that its decode and products are unrolled with no branch between them
-template <typename F>
-__device__ __forceinline__ void with_steps(int S, F&& f) {
-  switch (S) {
-    case 1: f(std::integral_constant<int, 1>()); break;
-    case 2: f(std::integral_constant<int, 2>()); break;
-    case 3: f(std::integral_constant<int, 3>()); break;
-    case 4: f(std::integral_constant<int, 4>()); break;
-    case 5: f(std::integral_constant<int, 5>()); break;
-    case 6: f(std::integral_constant<int, 6>()); break;
-    case 7: f(std::integral_constant<int, 7>()); break;
-    default: f(std::integral_constant<int, 8>()); break;
-  }
 }
 
 // One chunk's minima: `acc` holds the products of the warp's 32 rows
@@ -320,18 +193,6 @@ __device__ __forceinline__ void epilogue(const float acc[2][32], const float alp
     if (qi + 1 < nq) o[qi + 1] = r3[1];
   }
 }
-
-// A consumer's place in its ring: the stage and the parity of its next
-// use, advanced a use at a time
-struct RingPos {
-  int st = 0, parity = 0;
-  __device__ __forceinline__ void advance(int nsw) {
-    if (++st == nsw) {
-      st = 0;
-      parity ^= 1;
-    }
-  }
-};
 
 // the index of consumer c's stage st among the ring's stages
 __device__ __forceinline__ int ring_stage(const Plan& p, int c, int st) {
@@ -500,7 +361,7 @@ __device__ __forceinline__ void consume(const __nv_bfloat16* __restrict__ q,
 }  // namespace k2
 
 template <typename TX>
-__global__ void __launch_bounds__(k2::THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
     native_segmin_kernel(const __nv_bfloat16* __restrict__ q, const TX* __restrict__ x,
                          const float* __restrict__ xn, const unsigned char* __restrict__ valid,
                          float* __restrict__ out, int nq, int64_t nx, int d, int metric,
@@ -541,8 +402,6 @@ __global__ void __launch_bounds__(k2::THREADS, 1)
 }
 
 namespace k2 {
-
-inline unsigned align_up(unsigned v, unsigned a) { return (v + a - 1) / a * a; }
 
 // The plan for nq queries over nx rows of d (a multiple of 16) values of
 // `elem` bytes, on a card of `sms` SMs with `smem_max` bytes a block.
@@ -599,7 +458,7 @@ int launch(const void* q, const void* x, const float* xn, const unsigned char* v
   cudaFuncSetAttribute(native_segmin_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        p.smem);
   const unsigned blocks = static_cast<unsigned>(p.q_tiles) * p.per_q;
-  native_segmin_kernel<TX><<<blocks, k2::THREADS, p.smem, s>>>(
+  native_segmin_kernel<TX><<<blocks, THREADS, p.smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TX*>(x), xn, valid, out, nq, nx,
       d, metric, p);
   return static_cast<int>(cudaGetLastError());

@@ -134,16 +134,7 @@ inline __host__ __device__ int64_t select_row_bytes(int Cp, int d, int esize,
          (layout == kShared ? static_cast<int64_t>(Cp) * stride * esize : 0);
 }
 
-// torch.sort's ascending order of floats as an unsigned key: -0 as +0,
-// every NaN last
-__device__ __forceinline__ unsigned sort_key(float v) {
-  if (isnan(v)) return 0xffffffffu;
-  unsigned u = __float_as_uint(v);
-  if (u == 0x80000000u) u = 0u;  // -0 as +0
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// the number of positions j of keys[0..n) (sort_key values) that sort
+// the number of positions j of keys[0..n) (order_key values, NaN last) that sort
 // before position c
 __device__ __forceinline__ int rank_of(const unsigned* keys, int n, int c) {
   const unsigned kc = keys[c];
@@ -304,7 +295,7 @@ __global__ void __launch_bounds__(kSelThreads) select_kernel(SelectArgs a) {
   __syncthreads();
   // 2. the candidate order, the keys in dmin's words (free until step 3)
   unsigned* keys = reinterpret_cast<unsigned*>(dmin);
-  for (int c = tid; c < Cp; c += kSelThreads) keys[c] = sort_key(ud[c]);
+  for (int c = tid; c < Cp; c += kSelThreads) keys[c] = order_key(ud[c], false);
   __syncthreads();
   for (int c = tid; c < Cp; c += kSelThreads) {
     const int s = rank_of(keys, Cp, c);
@@ -394,7 +385,7 @@ __global__ void __launch_bounds__(kSelThreads) select_kernel(SelectArgs a) {
     const float v = sd[s];
     const float key = kept[s] ? v : (isfinite(v) ? __fadd_rn(v, kBig) : CUDART_INF_F);
     ud[s] = key;
-    keys[s] = sort_key(key);
+    keys[s] = order_key(key, false);
   }
   __syncthreads();
   for (int s = tid; s < Cp; s += kSelThreads) {

@@ -1,7 +1,7 @@
 // The stable k-smallest selection's shared pieces (sm_90a), included by
 // `selectk.cu` (the select_k kernel) and `pairtopk.cu` (the pairwise_topk
-// kernel): the order-preserving 32-bit key of an f32 value, the 64-bit
-// composite key << 32 | position (or row), which is unique, so that the k
+// kernel): the 64-bit composite of common.cuh's order key of an f32
+// value, key << 32 | position (or row), which is unique, so that the k
 // least composites are one set however the values are split among blocks,
 // the block-wide buffer that a filter fills and a bitonic network cuts to
 // its k least, and the merge of a row split over several blocks. Included
@@ -29,21 +29,6 @@ struct SelectKSmem {
   int counts[2][kSkWarps];  // a tile's takes per warp, by tile parity
   int last;                 // this block finished its row last
 };
-
-// The order of f32 values as an unsigned key: -0 as +0, NaN least
-// (`nan_first`) or greatest.
-__device__ __forceinline__ unsigned order_key(float v, bool nan_first) {
-  if (isnan(v)) return nan_first ? 0u : 0xffffffffu;
-  unsigned u = __float_as_uint(v);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// The least float whose key is `key` (NaN where no float compares: the
-// NaN keys, and a threshold not yet set).
-__device__ __forceinline__ float key_float(unsigned key) {
-  return __uint_as_float((key & 0x80000000u) ? key & 0x7fffffffu : ~key);
-}
 
 // Sort buf[0, n2) ascending (n2 a power of two) by a bitonic network. A
 // stage of stride 32 or less pairs only entries that one warp holds

@@ -73,9 +73,13 @@ import torch
 
 from vss_tpu_torch import csrc
 from vss_tpu_torch.index.graph import HNSWConfig, HNSWGraph
+# `select_k` is called through its module, so that a patch of
+# `topk.select_k` (chip_smoke.py's plain selection, the tests' spies)
+# reaches these calls too
+from vss_tpu_torch.ops import topk
 from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue, gathered_distances
 from vss_tpu_torch.ops.gather import _gather_distances_plain, gather_distances, gather_rows
-from vss_tpu_torch.ops.topk import SELECT_K_MAX, _select_k_splits, _select_min_k
+from vss_tpu_torch.ops.topk import SELECT_K_MAX, _select_k_splits
 from vss_tpu_torch.utils.trace import span
 
 __all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "scored_pivot_seeds",
@@ -586,7 +590,7 @@ def pivot_seeds(
     d_qp = _epilogue(dots, qn, pn, Metric.parse(config.metric))
     d_qp = torch.where((pivot_slots >= 0)[None, :], d_qp, _INF)
     # exact smallest-n_seeds, ties to the lower pivot (as lax.top_k)
-    sd, sp = _select_min_k(d_qp, min(n_seeds, pivot_slots.shape[0]))
+    sd, sp = topk.select_k(d_qp, min(n_seeds, pivot_slots.shape[0]))
     seeds = torch.where(torch.isfinite(sd), pivot_slots[sp.long()], -1)
     return seeds, sd
 

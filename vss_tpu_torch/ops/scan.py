@@ -38,14 +38,12 @@ from typing import Optional
 import torch
 
 from vss_tpu_torch import csrc
+# `select_k` is called through its module, so that a patch of
+# `topk.select_k` (chip_smoke.py's plain selection, the tests' spies)
+# reaches these calls too
+from vss_tpu_torch.ops import topk
 from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue
-from vss_tpu_torch.ops.topk import (
-    _BLOCK_ELEMS,
-    _SEG,
-    SELECT_K_MAX,
-    _select_min_k,
-    bruteforce_topk,
-)
+from vss_tpu_torch.ops.topk import _BLOCK_ELEMS, _SEG, SELECT_K_MAX, bruteforce_topk
 from vss_tpu_torch.utils import cdiv, pad_dim, pad_to, resolve_device
 from vss_tpu_torch.utils.trace import span
 
@@ -129,14 +127,14 @@ def _select_subsegments(subs: torch.Tensor, keep: int) -> torch.Tensor:
     submins = subs.T.contiguous()  # [nq, NS_sub]; sub i = rows [32i, 32i+32)
     nq, ns_sub = submins.shape
     supermins = submins.reshape(nq, ns_sub // _GROUP, _GROUP).amin(2)
-    sd, si = _select_min_k(supermins, min(keep, ns_sub // _GROUP))
+    sd, si = topk.select_k(supermins, min(keep, ns_sub // _GROUP))
     group = torch.arange(_GROUP, dtype=torch.int32, device=subs.device)
     sub_idx = (si.clamp(min=0)[:, :, None] * _GROUP + group).reshape(nq, -1)
     sub_vals = submins.gather(1, sub_idx.long())
     sub_vals = torch.where(
         torch.isfinite(sd).repeat_interleave(_GROUP, 1), sub_vals, _INF
     )
-    ssd, ssp = _select_min_k(sub_vals, min(keep, sub_vals.shape[1]))
+    ssd, ssp = topk.select_k(sub_vals, min(keep, sub_vals.shape[1]))
     sub_global = sub_idx.gather(1, ssp.long())
     return torch.where(torch.isfinite(ssd), sub_global, -1)
 
@@ -175,7 +173,7 @@ def _rescore_plain(q, segs, tape, x_norms, valid, rerank_tape, m, k, metric: Met
     chunk of queries (fewer than k columns where the candidates are fewer
     than k)."""
     rows, dd = _phase_b_plain(q, segs, tape, x_norms, valid, rerank_tape is not None, metric)
-    bd, bp = _select_min_k(dd, m)
+    bd, bp = topk.select_k(dd, m)
     bi = rows.gather(1, bp.long())
     bi = torch.where(torch.isfinite(bd), bi, -1)
     if rerank_tape is None:

@@ -88,15 +88,8 @@ def _sort_min_k(d: torch.Tensor, k: int):
 def _select_min_k_plain(d: torch.Tensor, k: int):
     """The k smallest along dim 1 as the JAX package selects them: k
     argmin passes up to k = 32, one stable sort above. The CPU path of
-    `_select_min_k` and the reference for the `select_k` kernel."""
+    `select_k` and the reference for its kernel."""
     return _iter_min_k(d, k) if k <= _ITER_K_MAX else _sort_min_k(d, k)
-
-
-def _select_min_k(d: torch.Tensor, k: int):
-    """The k smallest along dim 1 of f32 `d` [R, C], in
-    `_select_min_k_plain`'s order: (values, int32 positions), by
-    `select_k`."""
-    return select_k(d, k)
 
 
 # the widest k the select_k kernel takes (csrc/selectk.cu): scan_topk at
@@ -258,7 +251,7 @@ def _rescore_block(q, segs, x, valid, k, metric: Metric, highest: bool):
         xn = (xg * xg).sum(2)
         dd = _epilogue(dots, qn, xn, metric)
     dd = torch.where(ok & ~torch.isnan(dd), dd, _INF)
-    best_d, best_p = _select_min_k(dd, k)
+    best_d, best_p = select_k(dd, k)
     best_i = rows.gather(1, best_p.long())
     return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
 
@@ -443,7 +436,7 @@ def bruteforce_topk(
         highest = precision == "highest"
         segmins = segmin_scan(q, x, valid_mask, metric, highest)  # [NS, nq]
         keep = min(k if highest else 2 * k, segmins.shape[0])
-        sd, si = _select_min_k(segmins.T.contiguous(), keep)
+        sd, si = select_k(segmins.T.contiguous(), keep)
         segs = torch.where(torch.isfinite(sd), si, -1)
         # keep >= min(k, 5) segments hold >= k rows, so k always fits
         return _rescore_segments(q, segs, x, valid_mask, k, metric, highest)
