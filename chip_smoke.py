@@ -244,8 +244,9 @@ NATIVE_RECALL = 0.9618
 # check_select's gist-width shape: d, corpus rows, rows selected, candidates
 SELECT_GIST = (960, 16384, 2048, 48)
 # rows of the small graphs on which check_beam runs the wide layout's
-# deep-ef and many-slot variants
-N_BEAM_SMALL = 6000
+# deep-ef and many-slot variants, and of its random graphs at the graph
+# cells' widths
+N_BEAM_SMALL, N_BEAM_WIDE = 6000, 100_000
 # the Database phase: single-query SQL statements timed, the rows of the
 # corpus on which the cost model must pick the exact scan, and the rows
 # inserted and deleted under the WAL
@@ -1027,12 +1028,30 @@ def shared_read_ns(dev) -> float:
     return ns
 
 
+def random_graph(dev, n, d, seed):
+    """An HNSWGraph of `n` random int8 rows of `d` values whose base-level
+    neighbours (m0 = 32) are drawn at random, one level, every row valid:
+    a beam over it finds nearly every neighbour unseen."""
+    from vss_tpu_torch.index.graph import HNSWGraph
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return HNSWGraph(
+        vectors=torch.randint(-127, 128, (n, d), generator=gen, **i32).to(torch.int8),
+        adj0=torch.randint(0, n, (n, 32), generator=gen, **i32),
+        upper_adj=torch.full((1, 16), -1, **i32), upper_row=torch.full((n, 1), -1, **i32),
+        levels=torch.zeros(n, **i32), valid=torch.ones(n, dtype=torch.bool, device=dev),
+        slot_to_rowid=torch.arange(n, **i32), entry=torch.tensor(0, **i32),
+        max_level=torch.tensor(0, **i32), count=torch.tensor(n, **i32))
+
+
 def check_beam(dev, idx, q_scaled, rng) -> dict:
     """The beam_search kernel against `_beam_search_base_plain`, the eager
     loop that launches K1 and K5 once per iteration: on the card the two
     must be equal exactly. The serving call (512 queries, ef=64, E=1,
     single pool, pivot seeds, the 1M int8 tape) is timed; a grid of
-    variants runs at a smaller batch."""
+    variants runs at a smaller batch; the serving shape runs again at the
+    graph cells' widths, on the staged route."""
     from vss_tpu_torch import HNSWConfig, HNSWIndex
     from vss_tpu_torch.index import search as sr
     from vss_tpu_torch.ops import bruteforce_topk
@@ -1087,9 +1106,11 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
             fail(f"beam_search {label}: beam_search_base's counters are not two 0-d tensors")
         counts = [int(c) for c in got[3]]
         sizes = (ef, E, fan, g.vectors.shape[1], mi, dual, hist)
-        py = sr.beam_smem_bytes(*sizes)
+        py = sr.beam_smem_bytes(*sizes, itemsize=g.vectors.element_size())
         if wide or py > sr._BEAM_MAX_SMEM:
-            layout = (f"wide layout: {sr.beam_smem_bytes(*sizes, wide=True)} B shared, "
+            layout = (f"wide layout: "
+                      f"{sr.beam_smem_bytes(*sizes, wide=True, itemsize=g.vectors.element_size())}"
+                      f" B shared, "
                       f"{sr.beam_pool_bytes(*sizes)} B of workspace a query")
         else:
             layout = f"{py} B shared"
@@ -1217,6 +1238,30 @@ def check_beam(dev, idx, q_scaled, rng) -> dict:
         variant(f"{storage} tape {n} x {d} {metric}", small, sq, 32, dual=True, cpu=True,
                 truth_x=tx)
         variant(f"{storage} tape {n} x {d} {metric} E=2 single pool", small, sq, 32, E=2)
+
+    # ---- the graph cells' widths (gist1m: int8 960 l2sq; openai1m: int8
+    # 1,536 cosine) at the serving call's shape, on random graphs: random
+    # adjacency leaves nearly every step 32 live rows, past the 31 rows a
+    # phase of the staged route holds at 1,536 B; both launches of each
+    # variant must take that route
+    for metric, d in (("l2sq", 960), ("cosine", 1536)):
+        rg = random_graph(dev, N_BEAM_WIDE, d, d)
+        gen = torch.Generator(device=dev).manual_seed(d + 1)
+        rq = torch.randn((BATCH, d), generator=gen, device=dev) * 40
+        rseeds = torch.randint(0, N_BEAM_WIDE, (BATCH, 4), generator=gen, device=dev,
+                               dtype=torch.int32)
+        routed = sr._BEAM.routed
+        r_iters, r_evals, _ = variant(
+            f"int8 d={d} {metric}, random graph of {N_BEAM_WIDE} rows: {BATCH} queries ef={EF} "
+            f"E=1 single pool", types.SimpleNamespace(
+                graph=rg, config=HNSWConfig(dims=d, metric=metric, storage_dtype="int8")),
+            rq, EF, seeds=rseeds)
+        staged = sr._BEAM.routed - routed
+        if staged != 2:
+            fail(f"beam_search int8 d={d}: {staged} of 2 launches took the staged route")
+        log(f"  int8 d={d}: both launches staged, {r_evals / BATCH:.1f} rows scored a query in "
+            f"at most {r_iters} iterations")
+        del rg
 
     # ---- the wide layout: pools in a per-query workspace in device memory,
     # where a block's shared memory cannot hold them (ef 8,161 with two
@@ -4760,47 +4805,157 @@ def gist_arm(dev, launches) -> dict:
             "launches": counts, "recall_at_10": {str(k): v for k, v in recalls.items()}}
 
 
-def beam_serving(dev, vecs, queries, smi, path) -> int:
+# `--beam-serving`'s wide widths: the graph cells' configurations of
+# vssbench/configs/, their stand-in corpora drawn from this seed
+BEAM_SERVING_CELLS, BEAM_SERVING_SEED = ("gist1m", "openai1m"), 2147483659
+
+
+def beam_serving_inputs(dev, vecs, queries, path, cell_name=None, seed=None):
+    """(graph, config, scaled queries, seeds) of one serving call of the
+    beam, saved to `path` first if it is missing: the 1M x 128 int8 l2sq
+    index over `vecs` (the corpus of `seed`) with `pivot_seeds`' seeds
+    (`cell_name` None), or a graph cell's configuration on its stand-in
+    corpus (BEAM_SERVING_SEED) with the queries and seeds of the first
+    batch of 512 of its pool as the cell's search makes them. The file
+    holds a hash of the configuration, the corpus and its seed, and a file
+    saved from other ones fails the run."""
+    from vss_tpu_torch import HNSWConfig, HNSWIndex, convert
+    from vss_tpu_torch.index import search as sr
+
+    if cell_name is None:
+        cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
+    else:
+        from vssbench import cell
+        from vssbench.data import Corpus
+        from vssbench.system import PortSystem
+
+        spec = cell.load_json(os.path.dirname(os.path.abspath(__file__)),
+                              f"vssbench/configs/{cell_name}.json")
+        system = PortSystem(spec["index"], spec["corpus"]["dims"], dev)
+        cfg = system.config
+    made_from = json.dumps([cell_name, repr(cfg), BATCH, EF] + (
+        [list(np.shape(vecs)), seed] if cell_name is None else [spec, BEAM_SERVING_SEED]),
+        sort_keys=True)
+    key = hashlib.sha256(made_from.encode()).hexdigest()
+    if not os.path.exists(path):
+        if cell_name is None:
+            idx = HNSWIndex.build(vecs, cfg, device=dev)
+            q = (torch.from_numpy(queries[:BATCH]).to(dev) / idx.vector_scale).contiguous()
+            pv_slots, pv_vecs, _ = idx.pivots()
+            seeds, _ = sr.pivot_seeds(idx.graph, cfg, q, pv_slots, pv_vecs, 4, (q * q).sum(-1))
+        else:
+            corpus = Corpus(spec["corpus"], BEAM_SERVING_SEED, dev)
+            system.prepare()
+            system.build(corpus.base())
+            idx = system.index
+            pool = corpus.queries(int(spec["queries"]["pool"]))[:BATCH].cpu().numpy()
+            seen = {}
+            real = sr.beam_search_base
+
+            def spy(graph, config, q, seeds, *a, **k):
+                seen.setdefault("q", q.clone())
+                seen.setdefault("seeds", seeds.clone())
+                return real(graph, config, q, seeds, *a, **k)
+
+            sr.beam_search_base = spy
+            try:
+                idx.search(pool, K, ef=EF)
+            finally:
+                sr.beam_search_base = real
+            q, seeds = seen["q"], seen["seeds"]
+            system.close()
+        arrays = {f: getattr(idx.graph, f).cpu().numpy() for f in convert.GRAPH_FIELDS}
+        np.savez(path, q=q.cpu().numpy(), seeds=seeds.cpu().numpy(), key=np.array(key),
+                 **arrays)
+        del idx, arrays
+        torch.cuda.empty_cache()
+    saved = np.load(path)
+    if "key" not in saved.files or str(saved["key"]) != key:
+        fail(f"{path} was saved from another configuration, corpus or seed than {made_from}: "
+             f"remove it or name another FILE")
+    g = convert.graph_from_arrays({f: saved[f] for f in convert.GRAPH_FIELDS}, device=dev)
+    return (g, cfg, torch.from_numpy(saved["q"]).to(dev),
+            torch.from_numpy(saved["seeds"]).to(dev))
+
+
+def beam_serving(dev, vecs, queries, smi, path, seed) -> int:
     """`--beam-serving FILE`: the beam_search kernel alone at the serving
-    call, for comparing two checkouts' kernels in one session. The first
-    run builds the 1M index with `auto` and saves its graph, the scaled
-    queries and their pivot seeds to FILE; every run (this package's or
-    another checkout's, with this script copied beside it) loads FILE and
-    times three rounds of 10 launches of its own `_beam_launch`, and
-    prints a digest of the result so that the runs can be held equal."""
+    call, for comparing two checkouts' kernels on one card, at d=128
+    (the 1M x 128 int8 l2sq index, saved to FILE) and at the graph cells'
+    widths (gist1m: 960 int8 l2sq; openai1m: 1,536 int8 cosine; each saved
+    beside FILE, `<FILE>.<config>.npz`). The first run builds and saves
+    them; every run (this package's or another checkout's, with this
+    script and vssbench/ beside it) loads them and, at each width, times
+    three rounds of 10 launches of its own `_beam_launch`, fails unless the
+    last one's result equals the eager loop's, and prints the iterations
+    and rows scored (the kernel's counters), the distinct tape and
+    adjacency rows of the batch (counted on the eager loop's K1 and K5
+    calls), the byte bound they give, and a digest of the result, so that
+    the runs can be held equal."""
     import hashlib
 
-    from vss_tpu_torch import HNSWConfig, HNSWIndex, convert
     from vss_tpu_torch.index import search as sr
     from vss_tpu_torch.ops.gather import gather_distances
 
-    cfg = HNSWConfig(dims=D, metric="l2sq", storage_dtype="int8")
-    if not os.path.exists(path):
-        idx = HNSWIndex.build(vecs, cfg, device=dev)
-        q_scaled = (torch.from_numpy(queries[:BATCH]).to(dev) / idx.vector_scale).contiguous()
-        pv_slots, pv_vecs, _ = idx.pivots()
-        seeds, _ = sr.pivot_seeds(idx.graph, cfg, q_scaled, pv_slots, pv_vecs, 4,
-                                  (q_scaled * q_scaled).sum(-1))
-        arrays = {f: getattr(idx.graph, f).cpu().numpy() for f in convert.GRAPH_FIELDS}
-        np.savez(path, q=q_scaled.cpu().numpy(), seeds=seeds.cpu().numpy(), **arrays)
-        del idx
-    saved = np.load(path)
-    g = convert.graph_from_arrays({f: saved[f] for f in convert.GRAPH_FIELDS}, device=dev)
-    q = torch.from_numpy(saved["q"]).to(dev)
-    seeds = torch.from_numpy(saved["seeds"]).to(dev)
-    qn = (q * q).sum(-1)
-    seed_d = gather_distances(g.vectors, seeds, q, cfg.metric, qn)
-    mi = 4 + 2 * EF
-    times = []
-    for _ in range(3):
-        sets = [sr._seed_pools(q, seeds, seed_d, EF, g.valid) for _ in range(11)]
-        it = iter(sets)
-        times.append(cuda_ms(lambda: sr._beam_launch(g, cfg, q, qn, next(it), EF, g.valid, 1, mi,
-                                                     0, False, True), 10))
-    digest = hashlib.sha256(sets[-1][0].cpu().numpy().tobytes()
-                            + sets[-1][1].cpu().numpy().tobytes()).hexdigest()[:16]
+    stem = path[:-4] if path.endswith(".npz") else path
+    widths = [(None, path)] + [(c, f"{stem}.{c}.npz") for c in BEAM_SERVING_CELLS]
+    out = {}
+    for cell_name, file in widths:
+        g, cfg, q, seeds = beam_serving_inputs(dev, vecs, queries, file, cell_name, seed)
+        qn = (q * q).sum(-1)
+        seed_d = gather_distances(g.vectors, seeds, q, cfg.metric, qn)
+        mi = 4 + 2 * EF
+        staged0 = getattr(sr._BEAM, "routed", None)
+        times = []
+        for _ in range(3):
+            sets = [sr._seed_pools(q, seeds, seed_d, EF, g.valid) for _ in range(11)]
+            it = iter(sets)
+            times.append(cuda_ms(lambda: sr._beam_launch(g, cfg, q, qn, next(it), EF, g.valid, 1,
+                                                         mi, 0, False, True), 10))
+        digest = hashlib.sha256(sets[-1][0].cpu().numpy().tobytes()
+                                + sets[-1][1].cpu().numpy().tobytes()).hexdigest()[:16]
+        counters = sr._beam_launch(g, cfg, q, qn, sr._seed_pools(q, seeds, seed_d, EF, g.valid),
+                                   EF, g.valid, 1, mi, 0, False, True)[3].tolist()
+        # the rows the batch reads: the eager loop's K1 (tape) and K5
+        # (adjacency) ids, each distinct row once
+        tape_ids, adj_ids = [], []
+        real_k1, real_k5 = sr.gather_distances, sr.gather_rows
+
+        def k1(table, ids, *a, **k):
+            tape_ids.append(ids[ids >= 0].flatten())
+            return real_k1(table, ids, *a, **k)
+
+        def k5(table, ids, *a, **k):
+            adj_ids.append(ids[ids >= 0].flatten())
+            return real_k5(table, ids, *a, **k)
+
+        sr.gather_distances, sr.gather_rows = k1, k5
+        try:
+            want = sr._beam_search_base_plain(g, cfg, q, seeds, seed_d, EF, g.valid, 1, mi, 0,
+                                              qn, False, True)
+        finally:
+            sr.gather_distances, sr.gather_rows = real_k1, real_k5
+        for name, got, exp in (("distances", sets[-1][0], want[0]), ("ids", sets[-1][1], want[1])):
+            if not bool(((got == exp) | (got.isnan() & exp.isnan())).all()):
+                fail(f"beam_serving {cell_name or 'sift-like'} d={q.shape[1]}: the kernel's "
+                     f"{name} differ from the eager loop's")
+        tape_rows = int(torch.unique(torch.cat(tape_ids)).numel())
+        adj_rows = int(torch.unique(torch.cat(adj_ids)).numel())
+        B, d = q.shape
+        row_bytes = d * g.vectors.element_size()
+        moved = tape_rows * row_bytes + adj_rows * g.adj0.shape[1] * 4 + B * d * 4
+        label = cell_name or "sift-like"
+        out[label] = {
+            "d": d, "metric": cfg.metric, "beam_serving_ms": times, "result_sha256_16": digest,
+            "iterations": counters[0], "rows_scored_a_query": counters[1] / B,
+            "distinct_tape_rows": tape_rows, "distinct_adjacency_rows": adj_rows,
+            "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "staged_launches": None if staged0 is None else sr._BEAM.routed - staged0}
+        log(f"{label} d={d} {cfg.metric}: {json.dumps(out[label])}")
+        del g
+        torch.cuda.empty_cache()
     log(smi)
-    log(json.dumps({"beam_serving_ms": times, "result_sha256_16": digest,
+    log(json.dumps({"beam_serving": out,
                     "package": os.path.dirname(os.path.abspath(sr.__file__))}))
     return 0
 
@@ -4908,9 +5063,10 @@ def main() -> int:
                          "in the full run, scan_search k=10 and 100 with each")
     ap.add_argument("--beam-serving", metavar="FILE", default=None,
                     help="time the beam_search kernel alone at the serving call over the 1M "
-                         "index saved in FILE (built with auto and saved there first if FILE "
-                         "is missing); prints its ms and a digest of its result and no result "
-                         "line")
+                         "x 128 index saved in FILE and the graph cells' gist1m and openai1m "
+                         "saved beside it (each built with auto and saved first if missing); "
+                         "prints each one's ms, counters, byte bound and a digest of its "
+                         "result, and no result line")
     ap.add_argument("--database-only", action="store_true",
                     help="run phase 7 (the Database) alone after the build, and print its "
                          "summary and no result line")
@@ -5026,7 +5182,7 @@ def main() -> int:
         return k2_only(dev, vecs, queries, smi, np.random.default_rng(args.seed + 1),
                        args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces"), args.k2_parent)
     if args.beam_serving:
-        return beam_serving(dev, vecs, queries, smi, args.beam_serving)
+        return beam_serving(dev, vecs, queries, smi, args.beam_serving, args.seed)
     out_dir = args.trace_dir or os.path.join(csrc.BUILD_DIR, "traces")
     if args.select_k_only:
         log(smi)

@@ -234,6 +234,27 @@ def test_shape_over_the_shared_memory_limit_raises_before_any_launch(world, monk
     assert len(launched) == 3
 
 
+@pytest.mark.parametrize("storage,d", [("f32", 40_000), ("bf16", 50_000), ("int8", 55_008)])
+def test_rows_too_wide_to_stage_launch_with_direct_loads(world, monkeypatch, storage, d):
+    """Rows of 512 bytes or more are staged in shared memory only where the
+    staged layout fits a block's 227 KB. A query this wide, whose one staged
+    row would pass it, launches in the shared layout with the direct loads'
+    count of bytes (query, pools and buffers, no rows) and raises nothing."""
+    g, cfg, q, seeds, seed_d, allow = _torch_inputs(world, 0)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[storage]
+    launched = []
+    monkeypatch.setattr(tsearch._BEAM, "launch", lambda *a: launched.append(a))
+    pools = tsearch._seed_pools(q, seeds, seed_d, 16, allow)
+    gw = dataclasses.replace(g, vectors=torch.zeros((g.capacity, d), dtype=dtype))
+    qw = torch.zeros((B, d))
+    tsearch._beam_launch(gw, dataclasses.replace(cfg, dims=d), qw, (qw * qw).sum(-1), pools,
+                         16, allow, 1, 36, 0, True, True)
+    rest, pool_bytes = tsearch._beam_sizes(16, 1, 16, d, 36, True, True)
+    direct = (rest + pool_bytes + 15) // 16 * 16
+    assert direct <= tsearch._BEAM_MAX_SMEM < direct + d * gw.vectors.element_size()
+    assert len(launched) == 1 and launched[0][-4:] == (0, direct, 0, 0)
+
+
 @pytest.mark.parametrize("ef,E,fan,d,iters,dual,hist,want", [
     # serving: query, 9 B x 128 slots, history, batch, scratch
     (64, 1, 32, 128, 132, False, True, 512 + 9 * 128 + 528 + 320 + 272),

@@ -80,6 +80,52 @@ CASES = [
     ("bf16", "ip", True, False, 4, 1, 16),
 ]
 
+# Rows of 512 bytes or more, which the kernel scores by the staged route
+# (bulk copies, `score_row_wide`), at the graph cells' widths and fan-out (m=16,
+# m0=32): (rows of the graph, d) + a case of CASES. The serving shapes
+# (single pool, history, E=1: 32 slots), both pools, E=4 (128 slots at
+# level 0), the f32 and bf16 tapes, a graph of 40 rows under a pool of 48,
+# whose iterations find most ids already seen, and pools of 1,000 that
+# leave shared memory for a few rows a phase, so that a step's live rows
+# land in several phases.
+WIDE_CASES = [
+    (600, 960, "int8", "l2sq", False, True, 1, 0, 64),
+    (600, 1536, "int8", "cosine", False, True, 1, 0, 64),
+    (600, 1536, "int8", "l2sq", True, True, 1, 0, 32),
+    (600, 960, "int8", "cosine", True, True, 1, 0, 24),
+    (600, 960, "bf16", "l2sq", True, True, 1, 0, 32),
+    (600, 960, "f32", "ip", False, True, 2, 0, 16),
+    (600, 960, "int8", "l2sq", False, False, 4, 0, 40),
+    (600, 1536, "int8", "l2sq", True, True, 4, 1, 16),
+    (40, 960, "int8", "l2sq", True, True, 1, 0, 48),
+    (200, 1536, "int8", "l2sq", True, True, 1, 0, 1000),
+]
+
+
+@pytest.fixture(scope="module")
+def wide_world():
+    """Small integer-valued indexes at m=16, built on first use, by (rows,
+    d): a world as `world` gives, four queries."""
+    built = {}
+
+    def get(n, d):
+        if (n, d) not in built:
+            rng = np.random.default_rng(d + n)
+            vecs = rng.integers(-6, 7, (n, d)).astype(np.float32)
+            idx = HNSWIndex.build(vecs, HNSWConfig(dims=d, m=16), method="native",
+                                  device="cpu")
+            g = idx.graph
+            q = torch.from_numpy(rng.integers(-6, 7, (4, d)).astype(np.float32))
+            allow = g.valid & torch.from_numpy(rng.random(g.capacity) > 0.2)
+            seeds0 = torch.from_numpy(rng.integers(0, n, (4, 3)).astype(np.int32))
+            seeds0[2, 1:] = -1
+            upper = torch.nonzero(g.levels >= 1)[:, 0].to(torch.int32)
+            seeds1 = upper[torch.from_numpy(rng.integers(0, upper.numel(), 4))]
+            built[n, d] = idx, q, allow, seeds0, seeds1
+        return built[n, d]
+
+    return get
+
 
 def _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds, ef, E, level, dual, hist,
                   wide=False, want_wide=None):
@@ -122,15 +168,22 @@ def _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds, ef, E, level, 
     assert (int(counters[0]), int(counters[1])) == (int(want[3][0]), int(want[3][1]))
 
 
-@pytest.mark.parametrize("storage,metric,dual,hist,E,level,ef", CASES)
-def test_emulated_beam_kernel_equals_plain_loop(emulated, world, monkeypatch, storage, metric,
-                                                dual, hist, E, level, ef):
-    idx, q, allow, seeds0, seeds1 = world
+@pytest.mark.parametrize("rows_d,storage,metric,dual,hist,E,level,ef", [
+    pytest.param(None, *c, id="-".join(map(str, c))) for c in CASES] + [
+    pytest.param(c[:2], *c[2:], id=f"n{c[0]}-d{c[1]}-" + "-".join(map(str, c[2:])))
+    for c in WIDE_CASES])
+def test_emulated_beam_kernel_equals_plain_loop(emulated, world, wide_world, monkeypatch, rows_d,
+                                                storage, metric, dual, hist, E, level, ef):
+    """The kernel equals the plain loop; `rows_d` (rows, d) names a graph
+    of `wide_world`, whose rows take the staged route, else `world`'s."""
+    idx, q, allow, seeds0, seeds1 = world if rows_d is None else wide_world(*rows_d)
     cfg = HNSWConfig(dims=idx.config.dims, m=idx.config.m, metric=metric, storage_dtype=storage)
     g = idx.graph.clone()
     g.vectors = _tape(g, storage)
+    staged = tsearch._BEAM.routed
     _run_emulated(emulated, monkeypatch, g, cfg, q, allow, seeds0 if level == 0 else seeds1,
                   ef, E, level, dual, hist, want_wide=False)
+    assert tsearch._BEAM.routed - staged == (0 if rows_d is None else 1)
 
 
 @pytest.mark.parametrize("storage,metric,dual,hist,E,level,ef",
@@ -190,25 +243,45 @@ def test_emulated_beam_more_slots_than_threads(emulated, small_world, monkeypatc
                   wide=wide, want_wide=wide)
 
 
-@pytest.mark.parametrize("ef,E,fan,d,dual,hist", [
+LAYOUT_CASES = [
     (64, 1, 32, 128, False, True), (64, 1, 32, 128, True, True), (16, 1, 32, 100, False, True),
     (128, 4, 32, 128, False, False), (8161, 1, 32, 128, True, True), (10485, 1, 32, 128, False, True),
-    (24, 2, 5, 19, True, True), (48, 9, 128, 16, True, False), (16384, 1, 32, 960, True, True)])
-def test_emulated_beam_layout_bytes_equal_the_wrappers(emulated, ef, E, fan, d, dual, hist):
+    (24, 2, 5, 19, True, True), (48, 9, 128, 16, True, False), (16384, 1, 32, 960, True, True)]
+# the staged route's rows (512 bytes or more): the graph cells' serving
+# shapes, E=4, f32 and bf16 tapes, a pool that leaves room for one row only,
+# and rows so wide that one staged row would pass a block's 227 KB, which
+# keep direct loads
+STAGED_LAYOUT_CASES = [
+    (64, 1, 32, 960, False, True, "int8"), (64, 1, 32, 1536, False, True, "int8"),
+    (128, 4, 32, 1536, True, True, "int8"), (64, 1, 32, 128, True, True, "f32"),
+    (64, 2, 32, 960, True, False, "bf16"), (3000, 1, 32, 1536, True, True, "int8"),
+    (64, 1, 32, 8192, False, True, "f32"), (64, 1, 32, 40000, False, True, "f32"),
+    (64, 1, 32, 55008, True, True, "int8")]
+
+
+@pytest.mark.parametrize("ef,E,fan,d,dual,hist,storage", [
+    pytest.param(*c, "int8", id="-".join(map(str, c))) for c in LAYOUT_CASES] + [
+    pytest.param(*c, id="-".join(map(str, c))) for c in STAGED_LAYOUT_CASES])
+def test_emulated_beam_layout_bytes_equal_the_wrappers(emulated, ef, E, fan, d, dual, hist,
+                                                       storage):
     """`beam_smem_bytes` and `beam_pool_bytes` count what the layout of
-    `csrc/beam.cu` (`vss_beam_layout_bytes`) counts, in both layouts."""
+    `csrc/beam.cu` (`vss_beam_layout_bytes`) counts, in both layouts, over
+    each tape dtype."""
     import ctypes
 
     fn = emulated["beam"].vss_beam_layout_bytes
     fn.restype = None
-    fn.argtypes = [ctypes.c_int32] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int32] * 9 + [ctypes.c_void_p]
+    dtype = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}[storage]
+    item = torch.empty((), dtype=dtype).element_size()
     mi = 4 + (2 * ef) // E
     out = (ctypes.c_int64 * 2)()
     for wide in (0, 1):
-        fn(ef, E, fan, d, mi, int(dual), int(hist), wide, ctypes.addressof(out))
+        fn(ef, E, fan, d, mi, int(dual), int(hist), wide, csrc.dtype_code(dtype),
+           ctypes.addressof(out))
         want_pool = tsearch.beam_pool_bytes(ef, E, fan, d, mi, dual, hist) if wide else 0
-        assert (out[0], out[1]) == (
-            tsearch.beam_smem_bytes(ef, E, fan, d, mi, dual, hist, wide=bool(wide)), want_pool)
+        assert (out[0], out[1]) == (tsearch.beam_smem_bytes(
+            ef, E, fan, d, mi, dual, hist, wide=bool(wide), itemsize=item), want_pool)
 
 
 def test_emulated_beam_refuses_another_shared_memory_count(emulated, world, monkeypatch):

@@ -11,7 +11,9 @@ than its library.
 Every CUDA entry point returns `cudaGetLastError()` after its launch;
 `Kernel.launch` raises on a nonzero code and counts successful launches
 in `Kernel.launches`, a plain integer, under a lock of its own so that
-queries run from several threads count every launch.
+queries run from several threads count every launch. A kernel with a
+second route counts the launches that took it in `Kernel.routed`, under
+the same lock (`Kernel.count_routed`).
 """
 from __future__ import annotations
 
@@ -175,6 +177,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.routed = 0
         self._count_lock = threading.Lock()
         self._fn = None
 
@@ -229,6 +232,12 @@ class Kernel:
         with self._count_lock:
             self.launches += 1 if launched is None else launched.value
 
+    def count_routed(self, n: int) -> None:
+        """Count `n` launches that took the kernel's second route, which
+        its entry point reports (the beam's staged rows)."""
+        with self._count_lock:
+            self.routed += n
+
 
 def operand(t):
     """`t` as a kernel operand: contiguous and 16-byte aligned (a view at
@@ -259,4 +268,4 @@ def register(kernel: Kernel) -> Kernel:
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.launches = k.routed = 0

@@ -18,7 +18,12 @@
 // row, so a query cannot run faster than iterations x two round trips to
 // device memory, a few hundred nanoseconds each (csrc/probe.cu measures
 // them); the rest of its time is a block's own serial work between its
-// barriers. Design:
+// barriers. At wide rows the batch's distinct rows, counted, are 355,000
+// of 960 B (gist1m's serving call, 69 iterations, 1,822 rows scored a
+// query) and 277,000 of 1,536 B (openai1m's, 81 iterations, 1,703 rows),
+// 0.10 and 0.13 ms of bytes; scoring a row a warp with each lane's chunks
+// loaded one after another, 4 rows a round, and the query read at 4-way
+// bank conflicts, the kernel took 1.06 and 1.44 ms there. Design:
 //   * all state of a query lives in its block's shared memory: the
 //     candidate pool (key, id, expanded flag) and the result pool, each
 //     the first `ef` slots of a power-of-two merge buffer; the expansion
@@ -42,15 +47,32 @@
 //     kStride), so the shared layout's pools stay shared-memory pointers
 //     and the one-slot-a-thread loops stay single passes: the serving
 //     shape compiles to what it was before the wide layout existed;
-//   * the tape rows are scored by gather.cuh's `score_row`, K1's scorer
-//     with K1's lane grouping, so a distance equals K1's bit for bit;
-//   * every row takes direct loads, whatever its width or alignment: each
-//     group of lanes loads its row from device memory as K1 does, 32/G
-//     rows per warp in flight, so the four warps of a 128-thread block
-//     keep 16 rows of 128 B in flight. Staging the iteration's rows in
-//     shared memory with `cp.async` first, all of them in flight before
-//     any is scored, was measured on the H100 and was slower at this
-//     block size, so it is not kept;
+//   * rows under 512 bytes (d=128 int8) are scored by gather.cuh's
+//     `score_row`, K1's scorer with K1's lane grouping, so a distance
+//     equals K1's bit for bit, with direct loads: each group of lanes
+//     loads its row from device memory as K1 does, 32/G rows per warp in
+//     flight, so the four warps of a 128-thread block keep 16 rows of
+//     128 B in flight. Such a row has fewer than 32 chunks, so K1's
+//     grouping gives it less than a warp and `score_row_wide`, which
+//     scores a row a warp, cannot keep its distances bit-equal there;
+//   * rows of 512 bytes or more (a whole warp a row, K1's grouping) take
+//     the staged route (kStaged): the live slots take positions as they
+//     are counted, each live row is one bulk copy into shared memory, all
+//     of a phase's copies in flight together and announced to one
+//     mbarrier, so the scoring waits for one round trip instead of one per
+//     chunk and round; a phase holds as many rows as fit kStageBudget
+//     beside the rest, so that 4 blocks stay resident (31 rows of 1,536 B,
+//     all 32 of 960 B), and at least one. Where even one row would take
+//     the block past kMaxSmem the rows keep direct loads, so the route
+//     refuses no shape that direct loads take. A warp then scores a row
+//     from shared memory with `score_row_wide`: the same chunks per lane,
+//     multiply-adds and shuffle tree as `score_row` (distances equal bit
+//     for bit), the query interleaved so that a warp's reads of it meet no
+//     bank conflict, and int8 decoded without the conversion unit. Staging
+//     was timed against direct loads from 512-B to 64-KB rows and was
+//     faster at every width, down to one row a phase. Loads hoisted into
+//     registers instead (8 rows x 2 chunks a lane) took 162 registers and
+//     3 blocks a SM, and were slower than the parent;
 //   * the scored batch is ranked by (distance, position), NaN last, which
 //     is a stable sort, and merged into the pool by the same bitonic
 //     network as the plain version (`_merge_sorted`): a ++ pad ++
@@ -65,6 +87,7 @@
 // Counters, 64-bit: [0] the largest number of iterations any query ran
 // (atomicMax), [1] the tape rows scored and [2] the nodes expanded, which
 // is the adjacency rows asked for (atomicAdd).
+#include "cpasync.cuh"
 #include "gather.cuh"
 
 namespace vss {
@@ -76,6 +99,11 @@ constexpr int kMinThreads = 128;      // a block's threads, at least
 // threads of 110 registers was refused: too many resources requested for
 // launch). Past it the threads stride over the slots.
 constexpr int kMaxThreads = 256;
+// Shared memory a block of the staged route fills with rows, at most: an
+// SM's 233,472 bytes shared by 4 blocks, less the 1 KB each reserves, so
+// that 4 blocks stay resident (a batch of 512 queries on 132 SMs runs in
+// one wave).
+constexpr int kStageBudget = 233472 / 4 - 1024;
 
 struct BeamArgs {
   const float* q;            // [B, d]
@@ -93,6 +121,7 @@ struct BeamArgs {
   int ef, E, fan, d, metric, max_iters, level_col, lmax;
   int P, log2p, hist_len, group, rank_lanes_log2;
   bool vec, dual, use_history, wide;
+  int row_bytes, nbuf;  // the staged route's rows: bytes each, rows a phase
 };
 
 // Byte offsets of a block's buffers. The shared layout keeps all of them in
@@ -100,17 +129,20 @@ struct BeamArgs {
 // rkey, rid, cflag) and the history to the block's slice of the workspace,
 // in the same order, and keeps the rest in shared memory. `total` is a
 // block's shared memory, `pool_total` a query's workspace bytes (0 in the
-// shared layout). The Python wrapper mirrors this arithmetic
-// (`beam_smem_bytes`, `beam_pool_bytes`) to pick a layout and to refuse a
-// shape before launching.
+// shared layout). The staged route (`row_bytes` > 0) adds the position ->
+// slot map of the live rows, the rows' mbarrier and `nbuf` rows. The
+// Python wrapper mirrors this arithmetic (`beam_smem_bytes`,
+// `beam_pool_bytes`) to pick a layout and to refuse a shape before
+// launching.
 struct BeamLayout {
   int qs, ckey, cid, rkey, rid, hist, nid, nd, red_key, red_pos, misc;
-  int cflag, dup, okf, total, pool_total;
+  int cflag, dup, okf, slot, bar, rows, total, pool_total;
 };
 
 inline __host__ __device__ BeamLayout beam_layout(int ef, int n, int P, int d,
                                                   int hist_len, bool dual,
-                                                  bool wide) {
+                                                  bool wide, int row_bytes,
+                                                  int nbuf) {
   BeamLayout L;
   int o = 0, g = 0;
   int& p = wide ? g : o;  // where the pools and the history go
@@ -128,6 +160,15 @@ inline __host__ __device__ BeamLayout beam_layout(int ef, int n, int P, int d,
   L.cflag = p, p += P;
   L.dup = o, o += n;
   L.okf = o, o += n;
+  L.slot = L.bar = L.rows = 0;
+  if (row_bytes > 0) {
+    o = (o + 3) / 4 * 4;
+    L.slot = o, o += 4 * n;
+    o = (o + 7) / 8 * 8;
+    L.bar = o, o += 8;
+    o = (o + 15) / 16 * 16;
+    L.rows = o, o += nbuf * row_bytes;
+  }
   L.total = (o + 15) / 16 * 16;
   L.pool_total = (g + 15) / 16 * 16;
   return L;
@@ -236,7 +277,7 @@ __device__ __forceinline__ void each_slot(int n, F&& f) {
   }
 }
 
-template <typename T, bool kWide, bool kStride>
+template <typename T, bool kWide, bool kStride, bool kStaged>
 __global__ void beam_kernel(BeamArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -244,7 +285,8 @@ __global__ void beam_kernel(BeamArgs a) {
   const int64_t b = blockIdx.x;
   const int ef = a.ef, E = a.E, fan = a.fan, d = a.d, P = a.P;
   const int n = E * fan;  // neighbour slots of one iteration
-  const BeamLayout L = beam_layout(ef, n, P, d, a.hist_len, a.dual, kWide);
+  const BeamLayout L = beam_layout(ef, n, P, d, a.hist_len, a.dual, kWide,
+                                   kStaged ? a.row_bytes : 0, a.nbuf);
   // the pools and the history: in shared memory, or in this query's slice
   // of the workspace
   unsigned char* pool = kWide ? a.workspace + b * L.pool_total : smem;
@@ -269,8 +311,20 @@ __global__ void beam_kernel(BeamArgs a) {
   int* sel_pos = reinterpret_cast<int*>(nd);
   int32_t* sel_id = nid;
   int32_t* picked = reinterpret_cast<int32_t*>(nd);
+  // the staged route: the live rows' slots by position, the rows, their
+  // barrier and its phase; the query in `wide_query_pos`'s order
+  int32_t* slot_of = reinterpret_cast<int32_t*>(smem + L.slot);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  unsigned char* rows = smem + L.rows;
+  const int chunks = d / (16 / static_cast<int>(sizeof(T)));
+  int phase = 0;
 
-  for (int e = tid; e < d; e += nt) qs[e] = a.q[b * d + e];
+  if (kStaged && tid == 0) {
+    mbar_init(bar, nt);
+    mbar_init_fence();
+  }
+  for (int e = tid; e < d; e += nt)
+    qs[kStaged ? wide_query_pos<T>(e, chunks) : e] = a.q[b * d + e];
   for (int i = tid; i < ef; i += nt) {
     ckey[i] = a.cand_d[b * ef + i];
     cid[i] = a.cand_i[b * ef + i];
@@ -406,7 +460,16 @@ __global__ void beam_kernel(BeamArgs a) {
       const int s = s0 + tid;
       const int32_t id = s < n ? nid[s] : -1;
       const unsigned live = __ballot_sync(0xffffffffu, id >= 0);
-      if ((tid & 31) == 0 && live != 0) atomicAdd(live_count, __popc(live));
+      if (kStaged) {
+        // each live slot's position among the live rows
+        int pos = 0;
+        if ((tid & 31) == 0 && live != 0) pos = atomicAdd(live_count, __popc(live));
+        pos = __shfl_sync(0xffffffffu, pos, 0) +
+              __popc(live & ((1u << (tid & 31)) - 1u));
+        if (id >= 0) slot_of[pos] = s;
+      } else if ((tid & 31) == 0 && live != 0) {
+        atomicAdd(live_count, __popc(live));
+      }
       const bool ok = a.dual && id >= 0 && a.allow[id] != 0;
       if (s0 == 0)
         my_ok = ok;
@@ -417,15 +480,45 @@ __global__ void beam_kernel(BeamArgs a) {
     __syncthreads();  // nid is final
 
     // ---- score the survivors against the query (K1's work)
-    for (int base = 0; base < n; base += ngroups) {
-      const int c = base + g;
-      const int32_t id = c < n ? nid[c] : -1;
-      const T* row =
-          id >= 0 ? table + static_cast<int64_t>(id) * d : nullptr;
-      float dot, xn;
-      score_row<T>(row, qs, d, group, gl, a.vec, dot, xn);
-      if (gl == 0 && c < n)
-        nd[c] = id >= 0 ? epilogue(dot, qnb, xn, a.metric) : CUDART_INF_F;
+    if (kStaged) {
+      // the live rows, nbuf a phase: one bulk copy each into shared
+      // memory, all in flight together, announced to one mbarrier; then a
+      // warp a row
+      const int live = *live_count, rb = a.row_bytes;
+      const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+      for (int s = tid; s < n; s += nt)
+        if (nid[s] < 0) nd[s] = CUDART_INF_F;
+      for (int p0 = 0; p0 < live; p0 += a.nbuf) {
+        const int cnt = live - p0 < a.nbuf ? live - p0 : a.nbuf;
+        if (tid < cnt) {
+          mbar_expect_tx(bar, static_cast<unsigned>(rb));
+          bulk_copy(rows + tid * rb, table + static_cast<int64_t>(nid[slot_of[p0 + tid]]) * d,
+                    static_cast<unsigned>(rb), bar);
+        } else {
+          mbar_arrive(bar);
+        }
+        mbar_wait(bar, phase);
+        phase ^= 1;
+        for (int r0 = 0; r0 < cnt; r0 += nw) {
+          const int r = r0 + warp;
+          float dot, xn;
+          score_row_wide<T>(r < cnt ? reinterpret_cast<const T*>(rows + r * rb) : nullptr, qs,
+                            chunks, lane, dot, xn);
+          if (lane == 0 && r < cnt) nd[slot_of[p0 + r]] = epilogue(dot, qnb, xn, a.metric);
+        }
+        if (p0 + cnt < live) __syncthreads();  // the rows are read: the next phase may land
+      }
+    } else {
+      for (int base = 0; base < n; base += ngroups) {
+        const int c = base + g;
+        const int32_t id = c < n ? nid[c] : -1;
+        const T* row =
+            id >= 0 ? table + static_cast<int64_t>(id) * d : nullptr;
+        float dot, xn;
+        score_row<T>(row, qs, d, group, gl, a.vec, dot, xn);
+        if (gl == 0 && c < n)
+          nd[c] = id >= 0 ? epilogue(dot, qnb, xn, a.metric) : CUDART_INF_F;
+      }
     }
     if (tid < n) okf[tid] = my_ok ? 1 : 0;
     __syncthreads();
@@ -499,11 +592,21 @@ __global__ void beam_kernel(BeamArgs a) {
   }
 }
 
-// Fills the derived fields of `a` (P, hist_len, group, vec) and the
-// block's thread count: one thread per neighbour slot, at least
-// kMinThreads and at most kMaxThreads (then the threads stride over the
-// slots), whole warps. Returns the layout, or sets `ok` false for a shape
-// the kernel does not take.
+// Whether a row takes the staged route: 16-byte loads and at least 32
+// chunks (512 bytes), where a row has a whole warp to itself.
+template <typename T>
+bool staged_rows(const BeamArgs& a) {
+  return a.vec && a.d / (16 / static_cast<int>(sizeof(T))) >= 32;
+}
+
+// Fills the derived fields of `a` (P, hist_len, group, vec, row_bytes,
+// nbuf) and the block's thread count: one thread per neighbour slot, at
+// least kMinThreads and at most kMaxThreads (then the threads stride over
+// the slots), whole warps. The staged route takes as many rows a phase as
+// fit kStageBudget beside the rest of the layout, at least one and at most
+// a step's slots, and is not taken where that layout passes kMaxSmem.
+// Returns the layout, or sets `ok` false for a shape the kernel does not
+// take.
 template <typename T>
 BeamLayout plan(BeamArgs& a, int& threads, bool& ok) {
   BeamLayout L = {};
@@ -525,21 +628,35 @@ BeamLayout plan(BeamArgs& a, int& threads, bool& ok) {
   const int64_t hist_len =
       a.use_history ? static_cast<int64_t>(a.max_iters) * a.E : 0;
   row_grouping<T>(a.d, a.group, a.vec);
+  const int64_t row_bytes =
+      staged_rows<T>(a) ? static_cast<int64_t>(a.d) * sizeof(T) : 0;
   // the sizes as 64-bit sums first: the layout's ints must not overflow
   const int64_t rough = 4LL * a.d + (a.dual ? 17 : 9) * P + 4 * hist_len +
-                        10LL * n + 288;
+                        10LL * n + 288 +
+                        (row_bytes ? 4 * n + 24 + row_bytes + kStageBudget : 0);
   if (rough > (1LL << 30)) return L;
   a.P = static_cast<int>(P);
   a.hist_len = static_cast<int>(hist_len);
+  a.row_bytes = static_cast<int>(row_bytes);
+  a.nbuf = 0;
+  if (row_bytes) {
+    const BeamLayout base = beam_layout(a.ef, static_cast<int>(n), a.P, a.d,
+                                        a.hist_len, a.dual, a.wide, a.row_bytes, 0);
+    const int64_t fit = (kStageBudget - base.rows) / row_bytes;
+    a.nbuf = static_cast<int>(fit < 1 ? 1 : fit > n ? n : fit);
+    // past a block's shared memory: the rows keep direct loads
+    if (base.rows + static_cast<int64_t>(a.nbuf) * row_bytes > kMaxSmem)
+      a.row_bytes = 0, a.nbuf = 0;
+  }
   ok = true;
   return beam_layout(a.ef, static_cast<int>(n), a.P, a.d, a.hist_len, a.dual,
-                     a.wide);
+                     a.wide, a.row_bytes, a.nbuf);
 }
 
-template <typename T, bool kWide, bool kStride>
+template <typename T, bool kWide, bool kStride, bool kStaged>
 int launch_kernel(const BeamArgs& a, int B, int threads, int smem,
                   cudaStream_t s) {
-  auto kernel = beam_kernel<T, kWide, kStride>;
+  auto kernel = beam_kernel<T, kWide, kStride, kStaged>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -547,6 +664,17 @@ int launch_kernel(const BeamArgs& a, int B, int threads, int smem,
   }
   kernel<<<B, threads, static_cast<size_t>(smem), s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kStaged>
+int launch_layout(const BeamArgs& a, int B, int threads, int smem,
+                  cudaStream_t s) {
+  const bool stride = a.E * a.fan > threads;
+  if (a.wide)
+    return stride ? launch_kernel<T, true, true, kStaged>(a, B, threads, smem, s)
+                  : launch_kernel<T, true, false, kStaged>(a, B, threads, smem, s);
+  return stride ? launch_kernel<T, false, true, kStaged>(a, B, threads, smem, s)
+                : launch_kernel<T, false, false, kStaged>(a, B, threads, smem, s);
 }
 
 // `smem_expected` and `pool_expected` are the wrapper's own counts of a
@@ -557,7 +685,7 @@ int launch_kernel(const BeamArgs& a, int B, int threads, int smem,
 template <typename T>
 int launch_beam(BeamArgs a, int B, int64_t smem_expected,
                 int64_t pool_expected, int64_t workspace_bytes,
-                cudaStream_t s) {
+                int* staged, cudaStream_t s) {
   int threads = 0;
   bool ok = false;
   const BeamLayout L = plan<T>(a, threads, ok);
@@ -566,12 +694,9 @@ int launch_beam(BeamArgs a, int B, int64_t smem_expected,
       static_cast<int64_t>(B) * L.pool_total > workspace_bytes ||
       (a.wide && a.workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool stride = a.E * a.fan > threads;
-  if (a.wide)
-    return stride ? launch_kernel<T, true, true>(a, B, threads, L.total, s)
-                  : launch_kernel<T, true, false>(a, B, threads, L.total, s);
-  return stride ? launch_kernel<T, false, true>(a, B, threads, L.total, s)
-                : launch_kernel<T, false, false>(a, B, threads, L.total, s);
+  *staged = a.row_bytes > 0 ? 1 : 0;
+  return *staged ? launch_layout<T, true>(a, B, threads, L.total, s)
+                 : launch_layout<T, false>(a, B, threads, L.total, s);
 }
 
 }  // namespace vss
@@ -583,19 +708,22 @@ int launch_beam(BeamArgs a, int B, int64_t smem_expected,
 // in `workspace` (`workspace_bytes` long, at least B * pool_bytes).
 // `smem_bytes` and `pool_bytes` are the caller's counts of a block's
 // shared memory and a query's workspace slice, which must equal the
-// layout's.
+// layout's. `staged` is set to 1 where the launch takes the staged route
+// (rows of 512 bytes or more), else 0.
 extern "C" int vss_beam_search(const float* q, const float* qn,
                                const void* table, const int32_t* adj,
                                const int32_t* upper_row, const void* allow,
                                float* cand_d, int32_t* cand_i, float* res_d,
                                int32_t* res_i, int64_t* counters,
-                               void* workspace, int B, int ef, int E, int fan,
-                               int d, int dtype, int metric, int max_iters,
-                               int level, int lmax, int dual, int use_history,
+                               void* workspace, int* staged, int B, int ef,
+                               int E, int fan, int d, int dtype, int metric,
+                               int max_iters, int level, int lmax, int dual,
+                               int use_history,
                                int wide, int64_t smem_bytes,
                                int64_t pool_bytes, int64_t workspace_bytes,
                                void* stream) {
   using namespace vss;
+  *staged = 0;
   if (B <= 0) return 0;
   BeamArgs a;
   a.q = q, a.qn = qn, a.table = table, a.adj = adj, a.upper_row = upper_row;
@@ -606,30 +734,35 @@ extern "C" int vss_beam_search(const float* q, const float* qn,
   a.ef = ef, a.E = E, a.fan = fan, a.d = d, a.metric = metric;
   a.max_iters = max_iters, a.level_col = level - 1, a.lmax = lmax;
   a.P = 0, a.log2p = 0, a.hist_len = 0, a.group = 1, a.rank_lanes_log2 = 0;
-  a.vec = false;
+  a.vec = false, a.row_bytes = 0, a.nbuf = 0;
   a.dual = dual != 0, a.use_history = use_history != 0, a.wide = wide != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == I8)
-    return launch_beam<int8_t>(a, B, smem_bytes, pool_bytes, workspace_bytes, s);
+    return launch_beam<int8_t>(a, B, smem_bytes, pool_bytes, workspace_bytes,
+                               staged, s);
   if (dtype == BF16)
     return launch_beam<__nv_bfloat16>(a, B, smem_bytes, pool_bytes,
-                                      workspace_bytes, s);
-  return launch_beam<float>(a, B, smem_bytes, pool_bytes, workspace_bytes, s);
+                                      workspace_bytes, staged, s);
+  return launch_beam<float>(a, B, smem_bytes, pool_bytes, workspace_bytes,
+                            staged, s);
 }
 
-// A block's shared-memory bytes and a query's workspace bytes for a shape
-// and layout ({-1, -1} for a shape the kernel does not take): the layout's
-// own counts, which `beam_smem_bytes` and `beam_pool_bytes` mirror.
+// A block's shared-memory bytes and a query's workspace bytes for a shape,
+// layout and tape dtype ({-1, -1} for a shape the kernel does not take):
+// the layout's own counts, which `beam_smem_bytes` and `beam_pool_bytes`
+// mirror.
 extern "C" void vss_beam_layout_bytes(int ef, int E, int fan, int d,
                                       int max_iters, int dual, int use_history,
-                                      int wide, int64_t* out) {
+                                      int wide, int dtype, int64_t* out) {
   using namespace vss;
   BeamArgs a = {};
   a.ef = ef, a.E = E, a.fan = fan, a.d = d, a.max_iters = max_iters;
   a.dual = dual != 0, a.use_history = use_history != 0, a.wide = wide != 0;
   int threads = 0;
   bool ok = false;
-  const BeamLayout L = plan<float>(a, threads, ok);
+  const BeamLayout L = dtype == I8     ? plan<int8_t>(a, threads, ok)
+                       : dtype == BF16 ? plan<__nv_bfloat16>(a, threads, ok)
+                                       : plan<float>(a, threads, ok);
   out[0] = ok ? L.total : -1;
   out[1] = ok ? L.pool_total : -1;
 }

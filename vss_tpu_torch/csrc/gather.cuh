@@ -116,6 +116,72 @@ __device__ __forceinline__ void score_row(const T* row, const float* qs,
   }
 }
 
+// A 16-byte chunk's values as f32, without the conversion unit for int8
+// (`decode`'s I2F runs at a quarter of the FMA rate): each byte b, biased
+// to b + 128, becomes the low byte of 2^23's pattern, and 2^23 + 128 is
+// subtracted; exact, so the values are `decode`'s bit for bit.
+__device__ __forceinline__ void decode_wide(const uint4& r, int8_t, float v[16]) {
+  const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u, r.z ^ 0x80808080u,
+                         r.w ^ 0x80808080u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      v[4 * j + b] =
+          __fsub_rn(__uint_as_float(__byte_perm(w[j], 0x4B000000u, 0x7540u | b)), 8388736.0f);
+}
+template <typename T>
+__device__ __forceinline__ void decode_wide(const uint4& r, T, float v[16]) {
+  decode(r, T(), v);
+}
+
+// Where `score_row_wide` reads query value e of a row of `chunks` 16-byte
+// chunks: the values of 4-value quad i of chunk v lie at (i * chunks + v) * 4,
+// so that the 32 lanes of a warp, each on its own chunk, read 32
+// neighbouring quads (no bank conflict; in the row's own order lanes 64 B
+// apart would share banks four ways).
+template <typename T>
+__device__ __forceinline__ int wide_query_pos(int e, int chunks) {
+  constexpr int VE = 16 / sizeof(T);
+  return (((e % VE) >> 2) * chunks + e / VE) * 4 + (e & 3);
+}
+
+// dot(row, q) and |row|^2 over one row of `chunks` 16-byte chunks, by the
+// 32 lanes of a warp, of which this is lane `lane`, with the query `qw` in
+// shared memory in `wide_query_pos`'s order; every lane returns both sums.
+// `score_row`'s arithmetic with a warp's 32 lanes a row and 16-byte loads
+// (lane l sums its chunks l, l + 32, ... in that order with the same
+// multiply-adds, then the same xor-shuffle tree), so each distance is
+// score_row's to the last bit. `row` in device or shared memory (16-byte
+// aligned), or null (both sums 0). Every lane of the warp calls it.
+template <typename T>
+__device__ __forceinline__ void score_row_wide(const T* row, const float* qw, int chunks,
+                                               int lane, float& dot, float& xn) {
+  constexpr int VE = 16 / sizeof(T);
+  dot = 0.0f;
+  xn = 0.0f;
+  if (row != nullptr) {
+    for (int v = lane; v < chunks; v += 32) {
+      float xv[16];
+      decode_wide(load_chunk(row + v * VE, true), T(), xv);
+#pragma unroll
+      for (int i = 0; i < VE / 4; ++i) {
+        const float4 qq = *reinterpret_cast<const float4*>(qw + (i * chunks + v) * 4);
+        const float qv[4] = {qq.x, qq.y, qq.z, qq.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dot = fmaf(xv[4 * i + e], qv[e], dot);
+          xn = fmaf(xv[4 * i + e], xv[4 * i + e], xn);
+        }
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    xn += __shfl_xor_sync(0xffffffffu, xn, off);
+  }
+}
+
 // Lane `gl` of `group` copies its share of one row of `chunks` elements
 // of type V (a 16-, 8-, 4-, 2- or 1-byte access each), neighbouring lanes
 // on neighbouring addresses.

@@ -20,7 +20,9 @@ each is one launch of a hand-written kernel with no host sync:
     block per query runs the whole loop with the pools in shared memory,
     the adjacency load (kernel K5's work) and the scoring (kernel K1's) as
     device functions inside it (pools too large for shared memory live in
-    a per-query workspace in device memory instead);
+    a per-query workspace in device memory instead; rows of 512 bytes or
+    more are copied into shared memory together before a warp scores
+    each, where that fits, `_BEAM.routed` counting those launches);
   * `greedy_descent` launches `greedy_descent` (`csrc/descent.cu`): one
     thread block per query walks the upper levels, reading each adjacency
     row and scoring its neighbours with the same device functions, the
@@ -80,6 +82,7 @@ from vss_tpu_torch.ops import topk
 from vss_tpu_torch.ops.distance import METRIC_IDS, Metric, _epilogue, gathered_distances
 from vss_tpu_torch.ops.gather import _gather_distances_plain, gather_distances, gather_rows
 from vss_tpu_torch.ops.topk import SELECT_K_MAX, _select_k_splits
+from vss_tpu_torch.utils import round_up
 from vss_tpu_torch.utils.trace import span
 
 __all__ = ["hnsw_search", "greedy_descent", "pivot_seeds", "scored_pivot_seeds",
@@ -94,10 +97,17 @@ _SYNC_EVERY = 4
 # a block's shared memory, the most csrc/beam.cu asks for; past it the
 # pools move to the wide layout's workspace in device memory
 _BEAM_MAX_SMEM = 232448
+# the shared memory a block of the beam's staged route fills with rows, at
+# most (`kStageBudget` in csrc/beam.cu): an SM's 233,472 bytes shared by 4
+# blocks, less the 1 KB each reserves
+_BEAM_STAGE_BUDGET = 233472 // 4 - 1024
 
+# `_BEAM.routed` counts the launches that took the staged route (rows of
+# 512 bytes or more: each step's live rows copied to shared memory
+# together, then scored by `score_row_wide`, csrc/gather.cuh)
 _BEAM = csrc.register(csrc.Kernel(
     "beam_search", "beam", "vss_beam_search",
-    [csrc.PTR] * 12 + [csrc.I32] * 13 + [csrc.I64] * 3,
+    [csrc.PTR] * 12 + [ctypes.POINTER(ctypes.c_int)] + [csrc.I32] * 13 + [csrc.I64] * 3,
 ))
 
 _DESCENT = csrc.register(csrc.Kernel(
@@ -350,25 +360,35 @@ def _beam_sizes(ef, expand, fan, d, max_iters, dual_pool, use_history):
     return rest, pools
 
 
-def _round16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
 def beam_smem_bytes(ef: int, expand: int, fan: int, d: int, max_iters: int,
-                    dual_pool: bool, use_history: bool, wide: bool = False) -> int:
-    """Shared-memory bytes one block of the beam kernel needs: the layout
-    arithmetic of `csrc/beam.cu` (`beam_layout`), which refuses a launch
-    whose count differs from its own. The shared layout holds the pools
-    too; the wide layout only the query and the per-iteration buffers."""
+                    dual_pool: bool, use_history: bool, wide: bool = False,
+                    itemsize: int = 1) -> int:
+    """Shared-memory bytes one block of the beam kernel needs over a tape of
+    `itemsize`-byte values: the layout arithmetic of `csrc/beam.cu`
+    (`beam_layout`, `plan`), which refuses a launch whose count differs
+    from its own. The shared layout holds the pools too; the wide layout
+    only the query and the per-iteration buffers. Rows of 512 bytes or
+    more take the staged route, which adds the live rows' slot map, an
+    mbarrier and as many rows as fit `_BEAM_STAGE_BUDGET` beside the rest
+    (at least one, at most a step's slots), where that stays within
+    `_BEAM_MAX_SMEM`; else they keep direct loads and add nothing."""
     rest, pools = _beam_sizes(ef, expand, fan, d, max_iters, dual_pool, use_history)
-    return _round16(rest if wide else rest + pools)
+    o = rest if wide else rest + pools
+    row_bytes = d * itemsize
+    if row_bytes % 16 == 0 and row_bytes >= 512:
+        n = expand * fan
+        rows = round_up(round_up(round_up(o, 4) + 4 * n, 8) + 8, 16)
+        staged = rows + min(n, max(1, (_BEAM_STAGE_BUDGET - rows) // row_bytes)) * row_bytes
+        if staged <= _BEAM_MAX_SMEM:
+            return staged
+    return round_up(o, 16)
 
 
 def beam_pool_bytes(ef: int, expand: int, fan: int, d: int, max_iters: int,
                     dual_pool: bool, use_history: bool) -> int:
     """Workspace bytes one query of the beam kernel's wide layout needs:
     its pools, their flags and its history."""
-    return _round16(_beam_sizes(ef, expand, fan, d, max_iters, dual_pool, use_history)[1])
+    return round_up(_beam_sizes(ef, expand, fan, d, max_iters, dual_pool, use_history)[1], 16)
 
 
 def _beam_search_base_cuda(graph, config, q, seeds, seed_d, ef, allow, E, max_iters, level,
@@ -395,8 +415,9 @@ def _beam_launch(graph, config, q, qn, pools, ef, allow, E, max_iters, level, du
     fan = config.m0 if level == 0 else config.m
     B, d = q.shape[0], graph.vectors.shape[1]
     sizes = (ef, E, fan, d, max_iters, dual_pool, use_history)
-    wide = _wide or beam_smem_bytes(*sizes) > _BEAM_MAX_SMEM
-    need = beam_smem_bytes(*sizes, wide=wide)
+    item = graph.vectors.element_size()
+    wide = _wide or beam_smem_bytes(*sizes, itemsize=item) > _BEAM_MAX_SMEM
+    need = beam_smem_bytes(*sizes, wide=wide, itemsize=item)
     pool = beam_pool_bytes(*sizes) if wide else 0
     if need > _BEAM_MAX_SMEM:
         raise ValueError(
@@ -423,16 +444,18 @@ def _beam_launch(graph, config, q, qn, pools, ef, allow, E, max_iters, level, du
     counters = torch.zeros(3, dtype=torch.int64, device=q.device)
     workspace = torch.empty((B * pool,), dtype=torch.uint8, device=q.device)
     if B:
+        staged = ctypes.c_int(0)
         _BEAM.launch(
             (q, qn, table, adj, upper_row, allow, cand_d, cand_i, res_d, res_i, workspace),
             q.data_ptr(), qn.data_ptr(), table.data_ptr(), adj.data_ptr(),
             upper_row.data_ptr(), allow.data_ptr(), cand_d.data_ptr(), cand_i.data_ptr(),
             res_d.data_ptr(), res_i.data_ptr(), counters.data_ptr(),
-            workspace.data_ptr() if wide else None,
+            workspace.data_ptr() if wide else None, ctypes.byref(staged),
             B, ef, E, fan, d, csrc.dtype_code(table.dtype),
             METRIC_IDS[Metric.parse(config.metric)], max_iters, level, upper_row.shape[1],
             int(dual_pool), int(use_history), int(wide), need, pool, workspace.numel(),
         )
+        _BEAM.count_routed(staged.value)
     if not dual_pool:
         res_d, res_i = cand_d, cand_i
     return res_d, res_i, cand_i, counters
